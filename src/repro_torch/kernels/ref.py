@@ -1,0 +1,116 @@
+"""Plain PyTorch versions of the ported kernels (port of
+``repro/kernels/ref.py``).
+
+Each function computes what its CUDA kernel computes, in the reference's
+op order, on any device.  The kernel wrappers take these only for CPU
+tensors; on the card they are what ``chip_smoke.py`` and the ``cuda``
+tests hold the kernels against.  They compute in full f32: TF32 is
+switched off for matmuls and convolutions (:func:`full_f32`) each time
+one of them runs on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.compression import unpack_indices_2d, unpack_rows
+
+NEG_INF = -1e30
+POS_SENTINEL = 1 << 30          # k_pos value that is never visible
+
+
+def full_f32() -> None:
+    """Full-f32 products on the card: a float32 matmul or convolution must
+    not drop to TF32 (about three decimal digits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def codebook_matmul_ref(x: torch.Tensor, idx: torch.Tensor,
+                        codebook: torch.Tensor) -> torch.Tensor:
+    """Dequantize fully, then dot."""
+    full_f32()
+    w = codebook.float()[idx.long()]
+    return (x.float() @ w).to(x.dtype)
+
+
+def packed_codebook_matmul_ref(x: torch.Tensor, pidx: torch.Tensor,
+                               codebook: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``codebook_matmul_packed``: unpack the
+    ``pack_indices_2d`` words, gather, dot."""
+    idx = unpack_indices_2d(pidx, x.shape[-1], codebook.shape[0])
+    return codebook_matmul_ref(x, idx, codebook)
+
+
+def packed_codebook_matmul_t_ref(x: torch.Tensor, pidx: torch.Tensor,
+                                 codebook: torch.Tensor, n_out: int,
+                                 order: str = "kd") -> torch.Tensor:
+    """Plain version of ``codebook_matmul_packed_t``: unpack either word
+    orientation to the [V, D] indices, gather, transposed dot."""
+    full_f32()
+    if order == "row":
+        idx = unpack_rows(pidx, x.shape[-1], codebook.shape[0])     # [V, D]
+    else:
+        idx = unpack_indices_2d(pidx, n_out, codebook.shape[0])     # [V, D]
+    w = codebook.float()[idx]
+    return (x.float() @ w.T).to(x.dtype)
+
+
+def quantized_gather_ref(tokens: torch.Tensor, pidx: torch.Tensor,
+                         codebook: torch.Tensor, d: int) -> torch.Tensor:
+    """Plain version of ``quantized_gather``: gather the packed word rows,
+    unpack their lanes, LUT through the codebook."""
+    words = pidx.view(torch.int32)[tokens.long()]    # [..., ⌈d/lanes⌉]
+    idx = unpack_rows(words, d, codebook.shape[0])
+    return codebook[idx]
+
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x / cap)).to(x.dtype)
+
+
+def blockwise_prefill_ref(q, k, v, q_pos, k_pos, *, window=None,
+                          softcap=None, scale, token_tile):
+    """q [B,C,H,hd]; k [B,S,KV,hd]; v [B,S,KV,vd]; q_pos [C]; k_pos [S]
+    int32 with S a multiple of ``token_tile``.  Online softmax over
+    ``token_tile``-row tiles; rows with ``k_pos > q_pos`` (or outside the
+    window) get probability exactly 0.  Returns [B,C,H,vd] f32."""
+    full_f32()
+    b, c, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    if s % token_tile:
+        raise ValueError(f"view rows {s} not a multiple of "
+                         f"token_tile={token_tile}")
+    rep = h // kv
+    qg = q.float().reshape(b, c, kv, rep, hd)
+    qp = q_pos.long()
+    m = torch.full((b, kv, rep, c), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kv, rep, c), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, rep, c, vd), dtype=torch.float32,
+                      device=q.device)
+    for t0 in range(0, s, token_tile):
+        ki = k[:, t0:t0 + token_tile].float()
+        vi = v[:, t0:t0 + token_tile].float()
+        kpos = k_pos[t0:t0 + token_tile].long()
+        logits = torch.einsum("bqkrd,bskd->bkrqs", qg, ki) * scale
+        logits = _softcap(logits, softcap)
+        ok = kpos[None, :] <= qp[:, None]
+        if window is not None:
+            ok &= (qp[:, None] - kpos[None, :]) < window
+        ok = ok[None, None, None]                         # [1,1,1,C,T]
+        logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.where(ok, torch.exp(logits - m_new[..., None]),
+                        torch.zeros_like(logits))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkrqs,bskd->bkrqd", p, vi)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, h, vd)

@@ -1,0 +1,191 @@
+"""Serving launcher of the port: the one-shot path of
+``repro.launch.serve`` (``--no-engine``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --packed DIR \\
+        --no-engine --batch 4 --prompt-len 128 --gen-len 16
+
+``--packed DIR`` serves a PackedModel artifact (the reference's npz +
+``manifest.json`` format): with ``--serve-layout packed`` every quantized
+leaf stays bit-packed on the device and runs through the CUDA kernels
+(embedding gather, every projection, the tied LM head; prefill attention
+through the blockwise-prefill kernel).  Without ``--packed`` the model is
+dense with random weights from a seed.  It runs on the card unless
+``--device cpu`` is given; with no card it stops with an error.
+
+The reference's flags whose path is not ported yet are accepted by name
+and refused with the ROADMAP.md module that will port them.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, list_archs, reduce_config
+from repro_torch.core.compression import ArtifactError, PackedModel
+from repro_torch.engine.oneshot import greedy_generate
+from repro_torch.kernels import build
+from repro_torch.models.transformer import init_params
+
+MLP_LEAVES = ("w_in", "w_gate", "w_out")
+
+# flag (argparse dest) → the ROADMAP.md module that ports its path; the
+# flag is refused unless left at its default
+_NOT_PORTED = {
+    "mesh": "module 14 (distributed)",
+    "host_devices": "module 14 (distributed)",
+    "ckpt_dir": "module 13 (LC training and its checkpoints)",
+    "requests": "module 5 (engine)",
+    "slots": "module 5 (engine)",
+    "page_size": "module 5 (engine)",
+    "pages": "module 5 (engine)",
+    "token_budget": "module 5 (engine)",
+    "vary_gen": "module 5 (engine)",
+    "kv_bits": "module 7 (quantized KV cache)",
+    "kv_cb": "module 7 (quantized KV cache)",
+    "temperature": "module 9 (sampling beyond greedy)",
+    "top_k": "module 9 (sampling beyond greedy)",
+    "seed": "module 9 (sampling beyond greedy)",
+    "deadline": "module 10 (fault tolerance)",
+    "queue_limit": "module 10 (fault tolerance)",
+    "snapshot_dir": "module 10 (fault tolerance)",
+    "snapshot_every": "module 10 (fault tolerance)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--packed", default=None,
+                    help="PackedModel artifact dir: serve quantized")
+    ap.add_argument("--serve-layout", default="packed",
+                    choices=("packed", "uint8"),
+                    help="bit-packed uint32 words or uint8 indices "
+                         "(uint8 runs on the CPU only until its kernel is "
+                         "ported)")
+    ap.add_argument("--serve-leaves", default="all", choices=("all", "mlp"))
+    ap.add_argument("--no-engine", action="store_true",
+                    help="one-shot lockstep loop (the only mode ported)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--host-devices", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--requests", type=int, default=None)
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--page-size", type=int, default=None)
+    ap.add_argument("--pages", type=int, default=None)
+    ap.add_argument("--token-budget", type=int, default=None)
+    ap.add_argument("--vary-gen", action="store_true")
+    ap.add_argument("--kv-bits", type=int, default=0, choices=(0, 2, 4, 8))
+    ap.add_argument("--kv-cb", default=None, choices=("page", "head"))
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--deadline", type=int, default=None)
+    ap.add_argument("--queue-limit", type=int, default=None)
+    ap.add_argument("--snapshot-dir", default=None)
+    ap.add_argument("--snapshot-every", type=int, default=None)
+    return ap
+
+
+def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
+    if not args.no_engine:
+        ap.error("the continuous-batching engine is not ported yet "
+                 "(ROADMAP.md module 5); pass --no-engine for the one-shot "
+                 "path")
+    for dest, item in _NOT_PORTED.items():
+        if getattr(args, dest) != ap.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+
+
+def _load_params(args, cfg, device):
+    if args.packed is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        return init_params(cfg, gen, device=device)
+    try:
+        packed = PackedModel.load(args.packed)
+    except ArtifactError as e:
+        sys.exit(f"refusing to serve {args.packed}: {e}")
+    quant_names = None if args.serve_leaves == "all" else MLP_LEAVES
+    params = packed.serving_params(quant_names=quant_names,
+                                   packed=args.serve_layout == "packed",
+                                   device=device)
+    s = packed.summary()
+    cov = packed.leaf_coverage()
+    n_q = sum(r["quantized"] for r in cov)
+    idx_bytes = (s["bits_per_weight"] / 8
+                 if args.serve_layout == "packed" else 1.0)
+    print(f"serving packed artifact: {s['scheme']} "
+          f"({s['bits_per_weight']} bit/weight, x{s['ratio']:.1f}, "
+          f"{args.serve_layout} layout: {idx_bytes:g} B/weight index "
+          f"traffic; {args.serve_leaves} leaves — {n_q}/{len(cov)} param "
+          f"paths quantized)")
+    return params
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the one-shot serve; returns the prompts, the tokens, the
+    per-step logits [B, gen_len, V] (on the device) and the timings."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _refuse_unported(ap, args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and args.serve_layout == "uint8":
+        ap.error("--serve-layout uint8 has no CUDA kernel yet (ROADMAP.md "
+                 "section 2, kernel row 11); it runs with --device cpu")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit("no CUDA device is visible: this launcher runs on the card "
+                 "(pass --device cpu for the plain CPU versions)")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    if device.type == "cuda":
+        build.build()
+    params = _load_params(args, cfg, device)
+
+    n_b = args.batch
+    prompts = np.random.RandomState(7).randint(
+        0, cfg.vocab, size=(n_b, args.prompt_len))
+    prompts_t = torch.from_numpy(prompts).to(device)
+    stats: dict = {}
+    tokens, logits = greedy_generate(params, cfg, prompts_t, args.gen_len,
+                                     collect_logits=True, stats=stats)
+    tokens = tokens.cpu().numpy()
+    for r in range(n_b):
+        print(f"req{r}: {tokens[r]}")
+
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    decode_s = stats["decode_s"]
+    step_ms = 1e3 * float(np.median(decode_s)) if decode_s else float("nan")
+    total_s = stats["prefill_s"] + sum(decode_s)
+    result = {
+        "device": where,
+        "prompts": prompts,
+        "tokens": tokens,
+        "logits": logits,
+        "prefill_ms": 1e3 * stats["prefill_s"],
+        "decode_ms_per_step": step_ms,
+        "decode_tokens_per_s": 1e3 * n_b / step_ms if decode_s else None,
+        "tokens_per_s": n_b * args.gen_len / total_s,
+    }
+    print(f"one-shot serve on {where}: batch {n_b}, prompt "
+          f"{args.prompt_len}, gen {args.gen_len} | prefill "
+          f"{result['prefill_ms']:.3f} ms | decode "
+          f"{step_ms:.3f} ms/step (median of {len(decode_s)}) | "
+          f"{result['tokens_per_s']:.1f} tokens/s end to end")
+    return result
+
+
+if __name__ == "__main__":
+    main()
