@@ -7,19 +7,30 @@
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, in parallel), printing ``-Xptxas -v`` for each.
 2. Per kernel: holds it against its plain PyTorch version on the card at
-   small ragged shapes and at the serving path's shapes, for K in
-   {2, 4, 16, 256} (bits 1, 2, 4, 8), and times it (CUDA events) beside
-   the plain version, one PyTorch library call over the dequantized dense
-   weight as a yardstick, and the least time the card could take (the
-   larger of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s f32).
-3. Main path at full width: builds a random K=16 ``qwen1.5-0.5b``
-   artifact on the card from a seed, saves it, serves it through
+   small ragged shapes and at the serving path's shapes (the packed
+   kernels for K in {2, 4, 16, 256}; the page gather and the paged decode
+   attention for several head groupings, head dims, page sizes, softcaps,
+   positions and dead slots), and times it (CUDA events) beside the plain
+   version, one PyTorch library call as a yardstick, and the least time
+   the card could take (the larger of bytes / 3.35 TB/s and FLOPs /
+   67 TFLOP/s f32).
+3. Builds a random K=16 ``qwen1.5-0.5b`` artifact on the card from a seed
+   and saves it.  One-shot path at full width: serves it through
    ``repro_torch.launch.serve --packed DIR --no-engine --batch 4
    --prompt-len 128 --gen-len 16`` with the launch counters zeroed just
-   before, checks that every kernel ran, and re-runs the same steps with
-   the plain versions (the CPU route) teacher-forced on the served tokens,
-   comparing the logits at every step.
-4. Prints one JSON line of per-kernel results, the card line, and last
+   before, checks that every kernel of that path ran, and re-runs the same
+   steps with the plain versions (the CPU route) teacher-forced on the
+   served tokens, comparing the logits at every step; then profiles a
+   prefill and 4 decode steps.
+4. Engine path at full width: serves the same artifact through the
+   launcher's default engine mode (``--requests 8 --slots 4 --prompt-len
+   128 --gen-len 16 --vary-gen --page-size 16``) with the counters zeroed
+   just before, checks that all six kernels ran, then again on an
+   oversubscribed pool (``--pages 25``) that must stall; every finished
+   stream is teacher-forced through the plain route on the CPU and each
+   engine token must be its argmax or a near tie.  Then profiles an
+   engine prefill step and 4 engine decode steps.
+5. Prints one JSON line of per-kernel results, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before that line; so does a machine without a CUDA device.
 """
@@ -59,12 +70,17 @@ class SmokeFailure(RuntimeError):
 
 
 class Shapes:
-    """The serving path's kernel shapes for one config and serve size."""
+    """The serving path's kernel shapes for one config and serve size
+    (``batch`` is the one-shot batch and the engine's slot count)."""
 
     def __init__(self, cfg, batch: int, prompt_len: int, gen_len: int,
-                 block: int):
+                 block: int, page: int = 16):
         self.cfg, self.batch = cfg, batch
         self.prompt_len, self.gen_len, self.block = prompt_len, gen_len, block
+        # the engine's default pool: every slot holds max_seq in pages
+        self.page = page
+        self.npg = -(-(prompt_len + gen_len) // page)
+        self.n_phys = batch * self.npg + 1
         self.v, self.d, self.f = cfg.vocab, cfg.d_model, cfg.d_ff
         self.h, self.kv, self.hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
         # (Kd, N) of every projection: q/k/v/o, w_in/w_gate, w_out
@@ -360,6 +376,158 @@ def check_prefill(gen, dev, sh: Shapes) -> dict:
                 max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
 
+def paged_operands(gen, dev, b: int, rep: int, kv: int, hd: int, page: int,
+                   npg: int):
+    """q [B,1,H,hd] and pools [B·npg + 1, page, KV, hd] of random values
+    (rows past each slot's pos included), with a page table over a random
+    permutation of the usable pages."""
+    n_phys = b * npg + 1
+    q = 3 * torch.randn(b, 1, kv * rep, hd, generator=gen, device=dev)
+    kp = torch.randn(n_phys, page, kv, hd, generator=gen, device=dev)
+    vp = torch.randn(n_phys, page, kv, hd, generator=gen, device=dev)
+    perm = torch.randperm(n_phys - 1, generator=gen, device=dev)[:b * npg]
+    return q, kp, vp, (perm + 1).reshape(b, npg).to(torch.int32)
+
+
+def check_page_gather(gen, dev, sh: Shapes) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.page_gather import page_gather
+    print("page_gather (exact):")
+    feat = (sh.kv, sh.hd)
+
+    def case(label, b, npg, page, feat, dtype, alive):
+        n_phys = b * npg + 1
+        pool = torch.randint(-999, 999, (n_phys, page) + tuple(feat),
+                             generator=gen, device=dev).to(dtype)
+        table = torch.randint(0, n_phys, (b, npg), generator=gen, device=dev,
+                              dtype=torch.int32)
+        alv = torch.tensor(alive, device=dev)
+        got = page_gather(pool, table, alv)
+        torch.cuda.synchronize()
+        return compare(label, got, ref.gather_pages_ref(pool, table, alv),
+                       exact=True)
+
+    case("f32 page 8, feat 2x8, one dead slot", 5, 3, 8, (2, 8),
+         torch.float32, [True, True, False, True, True])
+    case("bf16 page 16, feat 3x5 (16-byte words)", 3, 4, 16, (3, 5),
+         torch.bfloat16, [True, False, True])
+    case("int32 page 5, feat 7 (4-byte words)", 3, 2, 5, (7,), torch.int32,
+         [True, True, True])
+    case("uint8 page 5, feat 3 (1-byte words)", 2, 3, 5, (3,), torch.uint8,
+         [True, True])
+    case("all dead", 3, 3, 8, (2, 8), torch.float32, [False] * 3)
+    err = 0.0
+    for b in (1, sh.batch):       # prefill (one slot) and a full slot batch
+        err = case(f"serving B={b} npg={sh.npg} page={sh.page} feat={feat}",
+                   b, sh.npg, sh.page, feat, torch.float32, [True] * b)
+    # timing at the prefill shape: one slot's view through a full pool
+    _, kp, _, table = paged_operands(gen, dev, sh.batch, 1, sh.kv, sh.hd,
+                                     sh.page, sh.npg)
+    table, alive = table[:1], torch.ones(1, dtype=torch.bool, device=dev)
+    nc = copies_for(kp.numel() * 4)
+    pools = [kp.clone() for _ in range(nc)]
+    it = iter(range(10 ** 9))
+    tl = table.long()
+    times = time_all(
+        lambda: page_gather(pools[next(it) % nc], table, alive),
+        lambda: ref.gather_pages_ref(pools[next(it) % nc], table, alive),
+        lambda: pools[next(it) % nc][tl])
+    page_bytes = kp[0].numel() * 4
+    n_read = int(torch.unique(table).numel())
+    b_ms, b_by = bound(n_read * page_bytes + table.numel() * page_bytes
+                       + table.numel() * 4 + alive.numel(), 0)
+    return dict(name="page_gather",
+                shape=f"B=1 npg={sh.npg} pool [{sh.n_phys},{sh.page},"
+                      f"{sh.kv},{sh.hd}] f32",
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+
+
+def check_paged_attention(gen, dev, sh: Shapes) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+    print(f"paged_attention (alive slots within rel {REL_TOL:g}, dead slots "
+          f"exactly 0):")
+
+    def case(label, q, kp, vp, table, pos, alive, softcap=None):
+        hd = q.shape[-1]
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        alive = torch.tensor(alive, device=dev)
+        kw = dict(softcap=softcap, scale=hd ** -0.5)
+        got = paged_attention(q, kp, vp, table, pos, alive, **kw)
+        torch.cuda.synchronize()
+        want = ref.paged_attention_ref(q, kp, vp, table, pos, alive, **kw)
+        dead = got[~alive]
+        if not torch.equal(dead, torch.zeros_like(dead)):
+            raise SmokeFailure(f"paged_attention {label}: dead slots not 0")
+        if not alive.any():
+            print(f"  {label}: every slot dead, output exactly 0 ok")
+            return 0.0
+        return compare(label, got[alive], want[alive])
+
+    for rep, hd, page, softcap in ((1, 8, 8, None), (2, 64, 16, 30.0),
+                                   (4, 128, 8, None), (1, 128, 16, 30.0),
+                                   (2, 8, 16, None), (4, 64, 8, 30.0)):
+        npg = 3
+        ops = paged_operands(gen, dev, 5, rep, 2, hd, page, npg)
+        case(f"rep {rep} hd {hd} page {page} softcap {softcap}, pos 0 / "
+             f"page-1 / page / cap-1, one dead slot", *ops,
+             [0, page - 1, page, npg * page - 1, 5],
+             [True, True, True, True, False], softcap)
+    ops = paged_operands(gen, dev, 3, 2, 2, 64, 16, 2)
+    case("all dead", *ops, [3, 20, 31], [False] * 3)
+    ops = paged_operands(gen, dev, sh.batch, sh.h // sh.kv, sh.kv, sh.hd,
+                         sh.page, sh.npg)
+    case("serving shape, one dead slot", *ops,
+         [sh.prompt_len, sh.prompt_len + 7, sh.npg * sh.page - 1, 0],
+         [True, True, True, False])
+    pos_l = [sh.prompt_len + i * (sh.gen_len - 1) // 3
+             for i in range(sh.batch)]
+    err = case(f"serving shape, pos {pos_l}", *ops, pos_l,
+               [True] * sh.batch)
+    # timing at the serving decode shape, pools cycled past L2
+    q, kp, vp, table = ops
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    alive = torch.ones(sh.batch, dtype=torch.bool, device=dev)
+    nc = copies_for(2 * kp.numel() * 4)
+    pools = [(kp.clone(), vp.clone()) for _ in range(nc)]
+    scale = sh.hd ** -0.5
+    views = []
+    for k_c, v_c in pools:        # the library call reads the gathered view
+        gk = ref.gather_pages_ref(k_c, table, alive).transpose(1, 2)
+        gv = ref.gather_pages_ref(v_c, table, alive).transpose(1, 2)
+        views.append((gk.contiguous(), gv.contiguous()))
+    cap = sh.npg * sh.page
+    mask = (torch.arange(cap, device=dev)[None, :] <= pos[:, None])
+    mask = mask[:, None, None, :]
+    qt = q.transpose(1, 2).contiguous()
+    it = iter(range(10 ** 9))
+
+    def kernel():
+        k_c, v_c = pools[next(it) % nc]
+        return paged_attention(q, k_c, v_c, table, pos, alive, scale=scale)
+
+    def plain():
+        k_c, v_c = pools[next(it) % nc]
+        return ref.paged_attention_ref(q, k_c, v_c, table, pos, alive,
+                                       scale=scale)
+
+    def library():
+        gk, gv = views[next(it) % nc]
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, gk, gv, attn_mask=mask, scale=scale)
+
+    times = time_all(kernel, plain, library)
+    rows = sum(p + 1 for p in pos_l)              # visible rows per kv head
+    nbytes = (rows * sh.kv * sh.hd * 4 * 2 + 2 * q.numel() * 4
+              + table.numel() * 4 + 2 * sh.batch * 4)
+    b_ms, b_by = bound(nbytes, rows * sh.h * sh.hd * 2 * 2)
+    return dict(name="paged_attention",
+                shape=f"q [{sh.batch},1,{sh.h},{sh.hd}] pools "
+                      f"[{sh.n_phys},{sh.page},{sh.kv},{sh.hd}] npg={sh.npg} "
+                      f"pos {pos_l}",
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+
+
 # ---------------------------------------------------------------------------
 # Main-path phase
 # ---------------------------------------------------------------------------
@@ -437,14 +605,39 @@ def plain_teacher_forced(directory: str, cfg, prompts: np.ndarray,
     return torch.cat(out, dim=1)
 
 
-def profile_serve(directory: str, sh: Shapes, dev, card: str) -> None:
-    """Where a serve's time goes: one prefill, then 4 decode steps, each
-    under torch.profiler — host wall time, device kernel time (CUPTI), the
-    device's idle share and the kernels that take it.  The profiler adds
-    host time of its own, so the idle shares here are upper bounds."""
+def profile_window(label: str, fn, card: str) -> None:
+    """Run ``fn`` once under torch.profiler: host wall time, device kernel
+    time (CUPTI, device-side events only), the device's idle share and the
+    kernels that take it.  The profiler adds host time of its own, so the
+    idle shares are upper bounds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    # device-side events only: a CPU op's entry repeats the time of the
+    # kernels it launched
+    kern = [(e.key, _device_ms(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
+    busy = sum(ms for _, ms, _ in kern)
+    if busy == 0:
+        print(f"profile {label}: device time not measured (the profiler "
+              f"recorded no kernel time)")
+        return
+    top = sorted(kern, key=lambda r: -r[1])[:8]
+    print(f"profile {label} on {card}: wall {wall:.3f} ms, device kernels "
+          f"{busy:.3f} ms, device idle {1 - busy / wall:.1%}")
+    for name, ms, n in top:
+        print(f"    {ms:9.3f} ms  {n:6d} calls  {name[:90]}")
 
+
+def profile_serve(directory: str, sh: Shapes, dev, card: str) -> None:
+    """Where a one-shot serve's time goes: one prefill, then 4 decode
+    steps, each under :func:`profile_window`."""
     from repro_torch.core.compression import PackedModel
     from repro_torch.engine.oneshot import grow_caches
     from repro_torch.models.transformer import decode_step, prefill
@@ -467,78 +660,208 @@ def profile_serve(directory: str, sh: Shapes, dev, card: str) -> None:
         for t in range(steps):
             decode_step(params, sh.cfg, caches, tok, sh.prompt_len + 1 + t)
 
-    for label, fn in (("prefill", run_prefill),
-                      (f"decode x{steps}", run_decode)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        # device-side events only: a CPU op's entry repeats the time of
-        # the kernels it launched
-        kern = [(e.key, _device_ms(e), e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
-        busy = sum(ms for _, ms, _ in kern)
-        if busy == 0:
-            print(f"profile {label}: device time not measured (the "
-                  f"profiler recorded no kernel time)")
-            continue
-        top = sorted(kern, key=lambda r: -r[1])[:8]
-        print(f"profile {label} on {card}: wall {wall:.3f} ms, device "
-              f"kernels {busy:.3f} ms, device idle {1 - busy / wall:.1%}")
-        for name, ms, n in top:
-            print(f"    {ms:9.3f} ms  {n:6d} calls  {name[:90]}")
+    profile_window("prefill", run_prefill, card)
+    profile_window(f"decode x{steps}", run_decode, card)
 
 
-def main_path(card: str, sh: Shapes, dev, arch_args=()) -> dict:
+def profile_engine(directory: str, sh: Shapes, dev, card: str) -> None:
+    """Where an engine serve's time goes: the first engine step (admission
+    and one prefill block of ``block`` tokens), then 4 steps once every
+    slot decodes, each under :func:`profile_window`."""
+    from repro_torch.core.compression import PackedModel
+    from repro_torch.engine import Engine, Request
+    params = PackedModel.load(directory).serving_params(packed=True,
+                                                        device=dev)
+    prompts = np.random.RandomState(5).randint(
+        0, sh.v, size=(sh.batch, sh.prompt_len))
+    eng = Engine(params, sh.cfg, n_slots=sh.batch, page_size=sh.page,
+                 max_seq=sh.prompt_len + sh.gen_len)
+    for r in range(sh.batch):
+        eng.submit(Request(rid=r, prompt=prompts[r],
+                           max_new_tokens=sh.gen_len))
+    profile_window(f"engine step: admission + one {sh.block}-token prefill "
+                   f"block", eng.step, card)
+    while eng.sched.prefilling_ids() or eng.sched.queue:
+        eng.step()
+    steps = 4
+
+    def run_decode():
+        for _ in range(steps):
+            eng.step()
+
+    profile_window(f"engine decode x{steps} ({sh.batch} slots)", run_decode,
+                   card)
+
+
+def check_launched(path: str, counts: dict, names) -> None:
+    print(f"launches during the {path}: {counts}")
+    missing = [n for n in names if counts[n] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the {path}: "
+                           f"{missing}")
+
+
+def main_path(card: str, sh: Shapes, dev, directory: str,
+              arch_args=()) -> dict:
+    """The one-shot path (``--no-engine``) at full width (``arch_args``,
+    e.g. ``("--reduced",)``, serve another size of the config)."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     cfg, batch = sh.cfg, sh.batch
     prompt_len, gen_len = sh.prompt_len, sh.gen_len
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        pm = build_artifact(cfg, K_MAIN, seed=0, directory=tmp, dev=dev)
-        s = pm.summary()
-        print(f"artifact: {len(pm.packed)} packed leaves, "
-              f"{s['packed_bytes'] / 1e6:.1f} MB packed vs "
-              f"{s['ref_bytes'] / 1e6:.1f} MB f32, built and saved in "
-              f"{time.perf_counter() - t0:.1f} s")
-        argv = ["--packed", tmp, "--no-engine", "--batch", str(batch),
-                "--prompt-len", str(prompt_len), "--gen-len", str(gen_len),
-                "--device", str(dev), *arch_args]
-        dispatch.reset_launch_counts()
-        res = serve.main(argv)
-        counts = dispatch.launch_counts()
-        print(f"launches during the serve: {counts}")
-        missing = [n for n, c in counts.items() if c == 0]
-        if missing:
-            raise SmokeFailure(f"kernels never launched on the main path: "
-                               f"{missing}")
-        tokens, logits = res["tokens"], res["logits"].cpu()
-        if tokens.shape != (batch, gen_len) or tokens.min() < 0 \
-                or tokens.max() >= cfg.vocab:
-            raise SmokeFailure(f"bad served tokens {tokens}")
-        if logits.shape != (batch, gen_len, cfg.vocab) \
-                or not torch.isfinite(logits).all():
-            raise SmokeFailure("served logits have the wrong shape or are "
-                               "not finite")
-        print(f"served on {card}: prefill {res['prefill_ms']:.3f} ms, "
-              f"decode {res['decode_ms_per_step']:.3f} ms/step, "
-              f"{res['decode_tokens_per_s']:.1f} decode tokens/s, "
-              f"{res['tokens_per_s']:.1f} tokens/s end to end")
-        t1 = time.perf_counter()
-        plain = plain_teacher_forced(tmp, cfg, res["prompts"], tokens)
-        print(f"plain teacher-forced run (CPU route) took "
-              f"{time.perf_counter() - t1:.1f} s")
-        profile_serve(tmp, sh, dev, card)
+    argv = ["--packed", directory, "--no-engine", "--batch", str(batch),
+            "--prompt-len", str(prompt_len), "--gen-len", str(gen_len),
+            "--device", str(dev), *arch_args]
+    dispatch.reset_launch_counts()
+    res = serve.main(argv)
+    counts = dispatch.launch_counts()
+    check_launched("one-shot serve", counts,
+                   ("quantized_gather", "codebook_matmul_packed",
+                    "codebook_matmul_packed_t", "blockwise_prefill"))
+    tokens, logits = res["tokens"], res["logits"].cpu()
+    if tokens.shape != (batch, gen_len) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab:
+        raise SmokeFailure(f"bad served tokens {tokens}")
+    if logits.shape != (batch, gen_len, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise SmokeFailure("served logits have the wrong shape or are "
+                           "not finite")
+    print(f"served on {card}: prefill {res['prefill_ms']:.3f} ms, "
+          f"decode {res['decode_ms_per_step']:.3f} ms/step, "
+          f"{res['decode_tokens_per_s']:.1f} decode tokens/s, "
+          f"{res['tokens_per_s']:.1f} tokens/s end to end")
+    t1 = time.perf_counter()
+    plain = plain_teacher_forced(directory, cfg, res["prompts"], tokens)
+    print(f"plain teacher-forced run (CPU route) took "
+          f"{time.perf_counter() - t1:.1f} s")
+    profile_serve(directory, sh, dev, card)
     compare("serving logits, every step", logits, plain,
             rel_tol=LOGIT_REL_TOL)
     agree = (plain.argmax(-1).numpy() == tokens).mean()
     print(f"  greedy tokens agree with the plain route's argmax at "
           f"{agree:.3f} of steps")
     return dict(res, counts=counts)
+
+
+def hold_streams(label: str, params_cpu, cfg, prompts: np.ndarray,
+                 outputs: dict, done: dict) -> None:
+    """Teacher-force every finished stream through the plain route on the
+    CPU (``transformer.prefill`` over prompt + stream): each engine token
+    must be the plain argmax, or a near tie within LOGIT_REL_TOL of the
+    row's largest |logit|.  ``done`` caches streams already held."""
+    from repro_torch.models.transformer import prefill
+    n_tok = n_tie = 0
+    worst = 0.0
+    t0 = time.perf_counter()
+    for rid, toks in sorted(outputs.items()):
+        toks = np.asarray(toks)
+        key = (prompts[rid].tobytes(), toks.tobytes())
+        if key not in done:
+            seq = np.concatenate([prompts[rid], toks[:-1]]).astype(np.int64)
+            logits, _ = prefill(params_cpu, cfg, torch.from_numpy(seq[None]))
+            rows = logits[0, prompts.shape[1] - 1:]            # [n, V]
+            ties, gap_max = 0, 0.0
+            for t, tok in enumerate(toks):
+                row = rows[t]
+                best = int(row.argmax())
+                if best == int(tok):
+                    continue
+                rel = float(row[best] - row[int(tok)]) / float(
+                    row.abs().max())
+                if rel > LOGIT_REL_TOL:
+                    raise SmokeFailure(
+                        f"{label}: request {rid} token {t} = {tok} is "
+                        f"{rel:.2e} (relative) below the plain route's "
+                        f"argmax {best}")
+                ties += 1
+                gap_max = max(gap_max, rel)
+            done[key] = (len(toks), ties, gap_max)
+        n, ties, gap_max = done[key]
+        n_tok += n
+        n_tie += ties
+        worst = max(worst, gap_max)
+    print(f"  {label}: {n_tok} engine tokens of {len(outputs)} streams held "
+          f"against the plain route: {n_tok - n_tie} its argmax, {n_tie} "
+          f"near ties within rel {LOGIT_REL_TOL:g} (largest gap {worst:.2e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def engine_path(card: str, sh: Shapes, dev, directory: str,
+                arch_args=()) -> dict:
+    """The engine path (the launcher's default mode) at full width: a
+    pool with room for every slot, then an oversubscribed one."""
+    from repro_torch.core.compression import PackedModel
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    cfg = sh.cfg
+    n_req = 2 * sh.batch
+    base = ["--packed", directory, "--requests", str(n_req), "--slots",
+            str(sh.batch), "--prompt-len", str(sh.prompt_len), "--gen-len",
+            str(sh.gen_len), "--vary-gen", "--page-size", str(sh.page),
+            "--device", str(dev), *arch_args]
+    params_cpu = PackedModel.load(directory).decode()
+    done: dict = {}
+
+    def serve_once(extra):
+        res = serve.main(base + extra)
+        bad = {r: v.outcome.value for r, v in res["results"].items()
+               if not v.ok}
+        if bad or sorted(res["outputs"]) != list(range(n_req)):
+            raise SmokeFailure(f"engine requests not all finished: {bad}")
+        for rid, toks in res["outputs"].items():
+            want = res["requests"][rid].max_new_tokens
+            if len(toks) != want or toks.min() < 0 or toks.max() >= cfg.vocab:
+                raise SmokeFailure(f"engine request {rid}: bad stream {toks}")
+        eng = res["engine"]
+        st = eng.stats
+        if st.generated_tokens != st.decode_tokens + st.prefill_samples:
+            raise SmokeFailure("EngineStats identity broken")
+        s = res["stats"]
+        print(f"engine on {card} ({' '.join(extra) or 'default pool'}, "
+              f"{eng.pool.n_pages} pages): prefill "
+              f"{s['prefill_ms_per_block']:.3f} ms/block (median of "
+              f"{len(st.prefill_block_s)}), decode "
+              f"{s['decode_ms_per_step']:.3f} ms/step (median of "
+              f"{len(st.decode_step_s)}), {s['tokens_per_s']:.1f} tokens/s, "
+              f"slot occupancy {s['slot_occupancy']:.3f}, page utilisation "
+              f"{s['page_utilization']:.3f} (peak "
+              f"{s['page_utilization_max']:.3f}), {s['stall_events']} stalls, "
+              f"{s['preemptions']} preemptions, {s['steps']} steps, "
+              f"{s['wall_s']:.3f} s")
+        return res
+
+    dispatch.reset_launch_counts()
+    res = serve_once([])
+    counts = dispatch.launch_counts()
+    check_launched("engine serve", counts, dispatch.KERNELS)
+    hold_streams("default pool", params_cpu, cfg, res["prompts"],
+                 res["outputs"], done)
+    pages = 25
+    while True:
+        tight = serve_once(["--pages", str(pages)])
+        if tight["stats"]["stall_events"] > 0:
+            break
+        print(f"  --pages {pages} showed no stall; trying {pages - 1}")
+        pages -= 1
+        if pages < sh.npg:
+            raise SmokeFailure("no oversubscribed pool showed a stall")
+    print(f"  oversubscribed pool: --pages {pages} stalled "
+          f"{tight['stats']['stall_events']} times")
+    hold_streams(f"--pages {pages}", params_cpu, cfg, tight["prompts"],
+                 tight["outputs"], done)
+    profile_engine(directory, sh, dev, card)
+    return dict(res, counts=counts, tight=tight, pages=pages)
+
+
+REPLACES = {
+    "quantized_gather": "src/repro/kernels/quantized_gather.py:42",
+    "codebook_matmul_packed": "src/repro/kernels/codebook_matmul_packed.py:57",
+    "codebook_matmul_packed_t":
+        "src/repro/kernels/codebook_matmul_packed_t.py:68",
+    "blockwise_prefill": "src/repro/kernels/blockwise_prefill.py:132",
+    "page_gather": "src/repro/kernels/paged_attention.py:472",
+    "paged_attention": "src/repro/kernels/paged_attention.py:173",
+}
 
 
 def run() -> int:
@@ -567,19 +890,19 @@ def run() -> int:
     sh = Shapes(get_config("qwen1.5-0.5b"), batch=4, prompt_len=128,
                 gen_len=16, block=DEFAULT_PREFILL_BLOCK)
     results = [check(gen, dev, sh) for check in
-               (check_gather, check_matmul, check_matmul_t, check_prefill)]
-    main = main_path(card, sh, dev)
+               (check_gather, check_matmul, check_matmul_t, check_prefill,
+                check_page_gather, check_paged_attention)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pm = build_artifact(sh.cfg, K_MAIN, seed=0, directory=tmp, dev=dev)
+        s = pm.summary()
+        print(f"artifact: {len(pm.packed)} packed leaves, "
+              f"{s['packed_bytes'] / 1e6:.1f} MB packed vs "
+              f"{s['ref_bytes'] / 1e6:.1f} MB f32, built and saved in "
+              f"{time.perf_counter() - t0:.1f} s")
+        main = main_path(card, sh, dev, tmp)
+        engine = engine_path(card, sh, dev, tmp)
 
-    source = {r["name"]: f"src/repro_torch/kernels/csrc/{r['name']}.cu"
-              for r in results}
-    replaces = {
-        "quantized_gather": "src/repro/kernels/quantized_gather.py:42",
-        "codebook_matmul_packed":
-            "src/repro/kernels/codebook_matmul_packed.py:57",
-        "codebook_matmul_packed_t":
-            "src/repro/kernels/codebook_matmul_packed_t.py:68",
-        "blockwise_prefill": "src/repro/kernels/blockwise_prefill.py:132",
-    }
     kernels = []
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
@@ -596,9 +919,11 @@ def run() -> int:
                   f"{t['bound_ms']:.4f} ms by {t['bound_by']}: "
                   f"{t['bound_ms'] / t['ms']:.1%} of the per-call time")
         kernels.append({
-            "name": r["name"], "route": "cuda", "source": source[r["name"]],
-            "replaces": replaces[r["name"]],
-            "launches": main["counts"][r["name"]],
+            "name": r["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{r['name']}.cu",
+            "replaces": REPLACES[r["name"]],
+            "launches": engine["counts"][r["name"]],
+            "launches_oneshot": main["counts"][r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

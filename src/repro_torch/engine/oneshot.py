@@ -1,7 +1,7 @@
 """The one-shot lockstep greedy loop (port of
 ``repro/engine/oneshot.py``): a fixed batch, blockwise prefill, greedy
-decode.  It is the serving path of this slice and the oracle the engine
-slice will be held against.
+decode.  It is the ``--no-engine`` serving path and the oracle the engine
+is held against.
 """
 from __future__ import annotations
 

@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("quantized_gather", "codebook_matmul_packed",
-           "codebook_matmul_packed_t", "blockwise_prefill")
+           "codebook_matmul_packed_t", "blockwise_prefill", "page_gather",
+           "paged_attention")
 HEADERS = ("unpack.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -9,9 +9,10 @@ matmul routes are literally the dense layout's graph (``x @ decode``), so
 dense / uint8 / packed serving agree bitwise there, as in the reference.
 
 The reference's TPU block tables (``_PACKED_BLOCK_TABLE``,
-``_PAGED_BLOCK_TABLE``) are not carried over: each CUDA kernel picks its
-own tiles.  The blockwise-prefill token tile is kept exactly, because the
-tile partition decides the bits of the online softmax.
+``_PAGED_BLOCK_TABLE``) and its ``REPRO_PAGED_BLOCK`` override are not
+carried over: each CUDA kernel picks its own tiles.  The blockwise-prefill
+token tile is kept exactly, because the tile partition decides the bits
+of the online softmax.
 """
 from __future__ import annotations
 
@@ -27,6 +28,11 @@ from repro_torch.kernels.blockwise_prefill import blockwise_prefill
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
+# the page gather needs no routing of its own: the per-slot view of any
+# pool dtype, dead slots masked to the trash page
+from repro_torch.kernels.page_gather import page_gather
+from repro_torch.kernels.paged_attention import paged_attention as \
+    _paged_attention
 from repro_torch.kernels.quantized_gather import quantized_gather as \
     _quantized_gather_rows
 
@@ -37,6 +43,8 @@ KERNELS = {
     "codebook_matmul_packed": codebook_matmul_packed,
     "codebook_matmul_packed_t": codebook_matmul_packed_t,
     "blockwise_prefill": blockwise_prefill,
+    "page_gather": page_gather,
+    "paged_attention": _paged_attention,
 }
 
 
@@ -113,6 +121,24 @@ def blockwise_prefill_attention(q, k, v, q_pos, k_pos, *,
                             q_pos, k_pos, window=window, softcap=softcap,
                             scale=scale, token_tile=tile)
     return out.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV (continuous-batching engine, dense pages)
+# ---------------------------------------------------------------------------
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, page_table: torch.Tensor,
+                    pos: torch.Tensor, alive: torch.Tensor, *,
+                    softcap: Optional[float] = None,
+                    scale: float) -> torch.Tensor:
+    """Paged GQA decode over dense KV pages: q [B,1,H,hd] + pools
+    [P+1, page, KV, hd] → [B, 1, H·hd] in the pool dtype.  The CUDA kernel
+    on the card, the reference's jnp math (gather, mask, softmax) on the
+    CPU."""
+    out = _paged_attention(q.contiguous(), k_pool, v_pool, page_table, pos,
+                           alive, softcap=softcap, scale=scale)
+    return out.to(k_pool.dtype)
 
 
 # ---------------------------------------------------------------------------

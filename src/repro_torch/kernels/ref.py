@@ -114,3 +114,58 @@ def blockwise_prefill_ref(q, k, v, q_pos, k_pos, *, window=None,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(b, c, h, vd)
+
+
+def gather_pages_ref(pool: torch.Tensor, page_table: torch.Tensor,
+                     alive: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``page_gather``: [P+1, page, ...] pool → per-slot
+    logical view [B, npg·page, ...].
+
+    Dead slots' table rows are masked to the trash page (page 0) *before*
+    the gather, so a stalled or empty slot reads one repeated page instead
+    of ``npg`` arbitrary live pages."""
+    b, npg = page_table.shape
+    table = torch.where(alive.bool()[:, None], page_table.long(), 0)
+    g = pool[table]                              # [B, npg, page, ...]
+    return g.reshape((b, npg * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def decode_attention_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                         valid: torch.Tensor, *, softcap: Optional[float],
+                         scale: float) -> torch.Tensor:
+    """Masked one-token GQA attention over a per-row K/V view: q
+    [B,1,H,hd]; ck/cv [B,cap,KV,hd]; valid [B or 1, cap] bool → [B,1,H·hd]
+    in the view dtype.  Logits in f32, masked by select, softmax over the
+    whole view (an all-masked row is uniform, as in the reference)."""
+    full_f32()
+    b, _, h, hd = q.shape
+    kv = ck.shape[2]
+    qg = q.reshape(b, 1, kv, h // kv, hd)
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), ck.float()) * scale
+    logits = _softcap(logits, softcap)
+    logits = torch.where(valid[:, None, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    attn = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkrqs,bskd->bkrqd", attn.to(cv.dtype), cv)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, page_table: torch.Tensor,
+                        pos: torch.Tensor, alive: torch.Tensor, *,
+                        softcap: Optional[float] = None,
+                        scale: float) -> torch.Tensor:
+    """Plain version of ``paged_attention`` (the reference's spec): gather
+    both pools through the page table, mask rows past ``pos`` and dead
+    slots, softmax-attend.  q [B,1,H,hd]; pools [P+1, page, KV, hd] →
+    [B,1,H·hd].  A dead slot's row is fully masked, so its softmax is
+    uniform and its output is the mean of the trash page's V rows; the
+    CUDA kernel, like the reference's Pallas kernel, writes 0 there.  The
+    engine discards dead rows either way."""
+    gk = gather_pages_ref(k_pool, page_table, alive)
+    gv = gather_pages_ref(v_pool, page_table, alive)
+    cap = gk.shape[1]
+    idx = torch.arange(cap, device=q.device)
+    valid = (idx[None, :] <= pos.long()[:, None]) & alive.bool()[:, None]
+    return decode_attention_ref(q, gk, gv, valid, softcap=softcap,
+                                scale=scale)

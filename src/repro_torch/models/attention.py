@@ -1,11 +1,11 @@
 """GQA attention for serving: projections, the blockwise-prefill block
-step and the contiguous-cache decode step (port of the ported parts of
+step, the contiguous-cache decode step and the engine's paged steps over
+dense KV pages (port of the ported parts of
 ``repro/models/attention.py``).
 
 Not ported yet (each raises or is absent): the full-sequence
 ``chunked_attention`` / ``gqa_forward`` training path, sliding-window
-rings, MLA, and the paged / quantized-KV engine paths (ROADMAP.md
-modules 5, 7, 8).
+rings, MLA, and the quantized-KV pages (ROADMAP.md modules 7, 8, 13).
 """
 from __future__ import annotations
 
@@ -14,10 +14,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.models.layers import apply_rope, init_normal, softcap
+from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.models.layers import apply_rope, init_normal
 from repro_torch.models.qleaf import qmatmul
-
-NEG_INF = -1e30
 
 
 def init_gqa(generator: torch.Generator, d_model: int, n_heads: int,
@@ -104,7 +103,6 @@ def gqa_decode(p, x_t: torch.Tensor, cache: KVCache, pos: int, *,
     if ring:
         raise NotImplementedError("sliding-window ring decode is not ported "
                                   "yet: ROADMAP.md module 8")
-    b = x_t.shape[0]
     q, k, v = _qkv(p, x_t, n_heads, n_kv, head_dim)
     pos_arr = torch.tensor([pos], device=x_t.device)
     q = apply_rope(q, pos_arr[None, :], rope_theta)
@@ -117,13 +115,130 @@ def gqa_decode(p, x_t: torch.Tensor, cache: KVCache, pos: int, *,
     if window is not None:
         valid &= idx > pos - window
     scale = query_scale if query_scale is not None else head_dim ** -0.5
-    rep = n_heads // n_kv
-    qg = q.reshape(b, 1, n_kv, rep, head_dim)
-    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.float(),
-                          cache.k.float()) * scale
-    logits = softcap(logits, attn_softcap)
-    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    attn = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkrqs,bskd->bkrqd", attn.to(cache.v.dtype), cache.v)
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, n_heads * head_dim)
+    o = decode_attention_ref(q, cache.k, cache.v, valid[None],
+                             softcap=attn_softcap, scale=scale)
     return qmatmul(p, "wo", o.to(x_t.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged / slot-aware steps (continuous-batching engine)
+#
+# Global-attention layers store KV in a pool of fixed-size pages shared by
+# all batch slots; a per-slot page table maps logical position t to the
+# physical cell (table[slot, t // page], t % page).  Physical page 0 is the
+# trash page: dead slots (and unallocated logical pages) point at it, so one
+# decode step serves any admission / eviction state with the same shapes.
+# Where the reference returns new pools, the port writes them in place
+# (``index_put_``) and returns the same cache.  Many dead slots may write
+# the trash page's cell at once; which write lands there is unspecified on
+# the card, which is harmless because the trash page is only ever read
+# masked.  The writes are issued before the attention reads them, on the
+# same stream.
+# ---------------------------------------------------------------------------
+
+
+class PagedKVCache(NamedTuple):
+    k: torch.Tensor          # [n_pages + 1, page, KV, hd]  (page 0 = trash)
+    v: torch.Tensor
+
+
+def init_paged_kv_cache(n_pages: int, page_size: int, n_kv: int,
+                        head_dim: int, dtype=torch.float32,
+                        device=None) -> PagedKVCache:
+    shape = (n_pages + 1, page_size, n_kv, head_dim)
+    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                        v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _write_slot(pool: torch.Tensor, page_table: torch.Tensor,
+                pos: torch.Tensor, alive: torch.Tensor, new: torch.Tensor,
+                page_size: int) -> torch.Tensor:
+    """Scatter one new entry per slot into its current page, in place.
+
+    pool [P+1, page, ...]; page_table [B, npg]; pos / alive [B];
+    new [B, ...].  Dead (or page-starved) slots write the trash page."""
+    b = new.shape[0]
+    npg = page_table.shape[1]
+    pos = pos.long()
+    pg = torch.clamp(pos // page_size, 0, npg - 1)
+    phys = page_table.long()[torch.arange(b, device=pool.device), pg]
+    phys = torch.where(alive.bool(), phys, 0)
+    pool[phys, pos % page_size] = new.to(pool.dtype)
+    return pool
+
+
+def _write_block_slot(pool: torch.Tensor, page_table: torch.Tensor, start,
+                      alive: torch.Tensor, new: torch.Tensor,
+                      page_size: int) -> torch.Tensor:
+    """Blockwise twin of ``_write_slot``: scatter ``c`` consecutive
+    entries per slot from logical position ``start`` (an int or [B]), in
+    place.  new [B, c, ...].  Dead slots write the trash page."""
+    b, c = new.shape[0], new.shape[1]
+    npg = page_table.shape[1]
+    dev = pool.device
+    start = torch.as_tensor(start, device=dev).long().reshape(-1)
+    t = start.expand(b)[:, None] + torch.arange(c, device=dev)[None, :]
+    pg = torch.clamp(t // page_size, 0, npg - 1)
+    phys = page_table.long()[torch.arange(b, device=dev)[:, None], pg]
+    phys = torch.where(alive.bool()[:, None], phys, 0)
+    pool[phys, t % page_size] = new.to(pool.dtype)
+    return pool
+
+
+def _gather_slots(pool: torch.Tensor, page_table: torch.Tensor,
+                  alive: torch.Tensor) -> torch.Tensor:
+    """Logical KV view per slot: [B, npg·page, ...].  Dead slots' table
+    rows read the trash page (the page-gather kernel on the card, its
+    plain version on the CPU)."""
+    return dispatch.page_gather(pool, page_table, alive)
+
+
+def gqa_decode_paged(p, x_t: torch.Tensor, cache: PagedKVCache,
+                     page_table: torch.Tensor, pos: torch.Tensor,
+                     alive: torch.Tensor, *, n_heads: int, n_kv: int,
+                     head_dim: int, page_size: int, attn_softcap=None,
+                     rope_theta: float = 10000.0, query_scale=None):
+    """One-token GQA decode for a batch of engine slots.
+
+    x_t [B,1,D]; page_table [B, npg] int32; pos [B] per-slot write
+    positions; alive [B] bool (dead slots: reads fully masked, writes land
+    on the trash page).  Returns (out [B,1,D], cache) — the pools are
+    written in place."""
+    q, k, v = _qkv(p, x_t, n_heads, n_kv, head_dim)
+    posb = pos[:, None]
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    _write_slot(cache.k, page_table, pos, alive, k[:, 0], page_size)
+    _write_slot(cache.v, page_table, pos, alive, v[:, 0], page_size)
+    scale = query_scale if query_scale is not None else head_dim ** -0.5
+    o = dispatch.paged_attention(q, cache.k, cache.v, page_table, pos, alive,
+                                 softcap=attn_softcap, scale=scale)
+    return qmatmul(p, "wo", o.to(x_t.dtype)), cache
+
+
+def gqa_prefill_block_paged(p, x: torch.Tensor, cache: PagedKVCache,
+                            page_table: torch.Tensor, start: int,
+                            alive: torch.Tensor, *, n_heads: int, n_kv: int,
+                            head_dim: int, page_size: int, attn_softcap=None,
+                            rope_theta: float = 10000.0, query_scale=None):
+    """One prompt block of a paged GQA layer.
+
+    x [B,c,D]; ``start`` the block's first logical position.  Writes the
+    block's K/V into the slot's pages, then attends the block's queries
+    over the gathered page view through the blockwise-prefill route —
+    rows past ``start + c`` are future or stale and mask out causally (row
+    index == position).  Returns (out [B,c,D], cache)."""
+    b, c, _ = x.shape
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
+    t = start + torch.arange(c, device=x.device)
+    q = apply_rope(q, t[None, :], rope_theta)
+    k = apply_rope(k, t[None, :], rope_theta)
+    _write_block_slot(cache.k, page_table, start, alive, k, page_size)
+    _write_block_slot(cache.v, page_table, start, alive, v, page_size)
+    view_k = _gather_slots(cache.k, page_table, alive)     # [B,cap,KV,hd]
+    view_v = _gather_slots(cache.v, page_table, alive)
+    scale = query_scale if query_scale is not None else head_dim ** -0.5
+    o = dispatch.blockwise_prefill_attention(
+        q, view_k, view_v, t, torch.arange(view_k.shape[1], device=x.device),
+        softcap=attn_softcap, scale=scale)
+    return qmatmul(p, "wo", o.reshape(b, c, n_heads * head_dim)), cache

@@ -9,10 +9,11 @@ slices each leaf ``[g]`` (a view, no copy).
 
 Ported: global GQA mixers with dense (gated) MLPs — ``init_params``,
 ``prefill(block=…)`` (blockwise, through the blockwise-prefill kernel),
-``init_cache`` and ``decode_step``.  Other mixers / MLP kinds, sliding
-windows, sinusoidal positions, VLM patches, the quantized KV cache and
-the engine's paged entry points raise ``NotImplementedError`` naming the
-ROADMAP.md module that ports them.
+``init_cache`` and ``decode_step``, and the engine's entry points over
+dense KV pages: ``init_paged_cache``, ``decode_step_slots`` and
+``prefill_chunk_slots``.  Other mixers / MLP kinds, sliding windows,
+sinusoidal positions, VLM patches and the quantized KV cache raise
+``NotImplementedError`` naming the ROADMAP.md module that ports them.
 """
 from __future__ import annotations
 
@@ -318,6 +319,96 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
          for pi in range(len(spec.pattern))}
         for spec, st in zip(cfg.stacks, states))
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Paged caches (continuous-batching engine)
+# ---------------------------------------------------------------------------
+#
+# Global-attention layers share one physical page pool per layer position
+# ([G, n_pages + 1, page, KV, hd]; page 0 is the trash page) indexed by ONE
+# per-slot page table: every layer caches the same logical positions, so
+# the table is model-wide.  ``decode_step_slots`` is the engine's serve
+# step: the same shapes for any admission / eviction state.
+
+
+def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
+                     page_size: int, dtype=torch.float32, device=None):
+    """Engine caches mirroring the param stacks: leaves
+    [G, n_pages + 1, page, KV, hd].  ``n_slots`` sizes the per-slot state
+    of the mixers that keep one (none among the ported ones)."""
+    del n_slots
+    check_ported(cfg)
+    caches = []
+    for spec in cfg.stacks:
+        stack = {}
+        for pi in range(len(spec.pattern)):
+            one = attn.init_paged_kv_cache(n_pages, page_size, cfg.n_kv,
+                                           cfg.head_dim, dtype, device)
+            stack[f"pos{pi}"] = attn.PagedKVCache(
+                *(t.expand((spec.groups,) + t.shape).clone() for t in one))
+        caches.append(stack)
+    return tuple(caches)
+
+
+def decode_step_slots(params, cfg: ModelConfig, caches,
+                      page_table: torch.Tensor, tokens_t: torch.Tensor,
+                      pos: torch.Tensor, alive: torch.Tensor):
+    """Slot-aware serve step of the engine.
+
+    tokens_t [B, 1] (B = n_slots); page_table [B, npg] int32; pos [B]
+    per-slot write positions; alive [B] bool.  Dead / page-starved slots
+    are masked: their attention reads are invalid and their pool writes
+    land on the trash page.  Returns (logits [B, 1, V] f32, caches) — the
+    pools are written in place."""
+    full_f32()
+    x = _embed(params, cfg, tokens_t)
+    for spec, sp, sc in zip(cfg.stacks, params["stacks"], caches):
+        page_size = sc["pos0"].k.shape[2]
+        for g in range(spec.groups):
+            for pi, kind in enumerate(spec.pattern):
+                p = _group(sp[f"pos{pi}"], g)
+                c = _group(sc[f"pos{pi}"], g)
+                out, _ = attn.gqa_decode_paged(
+                    p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]), c,
+                    page_table, pos, alive, n_heads=cfg.n_heads,
+                    n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+                    page_size=page_size, attn_softcap=cfg.attn_softcap,
+                    rope_theta=cfg.rope_theta, query_scale=cfg.query_scale)
+                x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
+                                  cfg)
+    return _head(params, cfg, x), caches
+
+
+def prefill_chunk_slots(params, cfg: ModelConfig, caches,
+                        page_table: torch.Tensor, tokens_c: torch.Tensor,
+                        slot: int, start: int):
+    """Engine blockwise prefill: ONE block of ``c`` prompt tokens for ONE
+    slot against the shared paged caches.
+
+    tokens_c [1, c] (positions [start, start + c)).  The block's K/V lands
+    in the slot's pages (in place).  Returns (last-position logits
+    [1, 1, V] f32, caches) — the logits matter only on the prompt's final
+    block, where they seed the first sampled token."""
+    full_f32()
+    table_row = page_table[slot:slot + 1]
+    alive = torch.ones(1, dtype=torch.bool, device=tokens_c.device)
+    x = _embed(params, cfg, tokens_c)
+    for spec, sp, sc in zip(cfg.stacks, params["stacks"], caches):
+        page_size = sc["pos0"].k.shape[2]
+        for g in range(spec.groups):
+            for pi, kind in enumerate(spec.pattern):
+                p = _group(sp[f"pos{pi}"], g)
+                c = _group(sc[f"pos{pi}"], g)
+                out, _ = attn.gqa_prefill_block_paged(
+                    p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]), c,
+                    table_row, start, alive, n_heads=cfg.n_heads,
+                    n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+                    page_size=page_size, attn_softcap=cfg.attn_softcap,
+                    rope_theta=cfg.rope_theta, query_scale=cfg.query_scale)
+                x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
+                                  cfg)
+    return _head(params, cfg, x[:, -1:, :]), caches
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The four CUDA kernels of the port against their plain PyTorch versions,
-on the card.  Marked ``cuda``; each skips without a CUDA device (the check
+"""The CUDA kernels of the port against their plain PyTorch versions, on
+the card.  Marked ``cuda``; each skips without a CUDA device (the check
 runs inside a fixture, so every worker collects the same tests).  Run on
 the machine with the card:
 
@@ -16,6 +16,8 @@ from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
+from repro_torch.kernels.page_gather import page_gather
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.quantized_gather import quantized_gather
 
 KS = (2, 4, 16, 256)
@@ -115,3 +117,99 @@ def test_cuda_uint8_route_raises(cuda):
         dispatch.quantized_matmul(x, torch.zeros(8, 4, dtype=torch.uint8,
                                                  device=cuda),
                                   torch.zeros(4, device=cuda))
+
+
+def _paged_operands(cuda, b, h, kv, hd, page, npg, seed, n_phys=None):
+    """q [B,1,H,hd] and pools [P+1, page, KV, hd] whose pages beyond each
+    slot's pos hold large garbage; a page table over a random permutation
+    of the usable pages."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_phys = n_phys or b * npg + 1
+    q = 3 * torch.randn(b, 1, h, hd, generator=g, device=cuda)
+    kp = torch.randn(n_phys, page, kv, hd, generator=g, device=cuda)
+    vp = torch.randn(n_phys, page, kv, hd, generator=g, device=cuda)
+    perm = torch.randperm(n_phys - 1, generator=g, device=cuda)[:b * npg] + 1
+    table = perm.reshape(b, npg).to(torch.int32)
+    return q, kp, vp, table
+
+
+def _check_paged(got, want, alive):
+    assert torch.isfinite(got).all()
+    live, dead = got[alive], got[~alive]
+    scale = float(want[alive].abs().max()) if alive.any() else 1.0
+    if alive.any():
+        assert (live - want[alive]).abs().max() <= 1e-4 * scale
+    # dead slots: the kernel writes 0 (the Pallas rule); the plain version
+    # follows the jnp spec there (mean of the trash page's V)
+    assert torch.equal(dead, torch.zeros_like(dead))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep,hd,page,softcap", [
+    (1, 8, 8, None), (2, 64, 16, 30.0), (4, 128, 8, None),
+    (1, 128, 16, 30.0), (2, 8, 16, None), (4, 64, 8, 30.0)])
+def test_cuda_paged_attention(cuda, rep, hd, page, softcap):
+    kv, npg = 2, 3
+    cap = npg * page
+    q, kp, vp, table = _paged_operands(cuda, 5, kv * rep, kv, hd, page, npg,
+                                       rep * hd + page)
+    pos = torch.tensor([0, page - 1, page, cap - 1, 5], dtype=torch.int32,
+                       device=cuda)
+    alive = torch.tensor([True, True, True, True, False], device=cuda)
+    kw = dict(softcap=softcap, scale=hd ** -0.5)
+    before = paged_attention.launches
+    got = paged_attention(q, kp, vp, table, pos, alive, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    _check_paged(got, ref.paged_attention_ref(q, kp, vp, table, pos, alive,
+                                              **kw), alive)
+    # int64 table / pos / bool alive are converted by the wrapper; a stale
+    # table row of the dead slot never matters
+    table[4] = table[0]
+    again = paged_attention(q, kp, vp, table.long(), pos.long(), alive, **kw)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_all_dead_and_serving_shape(cuda):
+    q, kp, vp, table = _paged_operands(cuda, 3, 4, 2, 64, 16, 2, 11)
+    dead = torch.zeros(3, dtype=torch.bool, device=cuda)
+    pos = torch.tensor([3, 20, 31], dtype=torch.int32, device=cuda)
+    got = paged_attention(q, kp, vp, table, pos, dead, scale=0.125)
+    assert torch.equal(got, torch.zeros_like(got))
+    # decode at the qwen1.5-0.5b engine shapes: 4 slots, 16 heads of 64,
+    # pages of 16, 9 logical pages per slot, 36 usable pages
+    q, kp, vp, table = _paged_operands(cuda, 4, 16, 16, 64, 16, 9, 12)
+    pos = torch.tensor([127, 130, 143, 0], dtype=torch.int32, device=cuda)
+    alive = torch.tensor([True, True, True, False], device=cuda)
+    got = paged_attention(q, kp, vp, table, pos, alive, scale=0.125)
+    torch.cuda.synchronize()
+    _check_paged(got, ref.paged_attention_ref(q, kp, vp, table, pos, alive,
+                                              scale=0.125), alive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,feat,page", [
+    (torch.float32, (16, 64), 16), (torch.float32, (2, 8), 8),
+    (torch.bfloat16, (3, 5), 16), (torch.int32, (7,), 5),
+    (torch.uint8, (3,), 5)])          # 16-, 4- and 1-byte copy words
+@pytest.mark.parametrize("b", [1, 4])
+def test_cuda_page_gather_exact(cuda, dtype, feat, page, b):
+    g = torch.Generator(device=cuda).manual_seed(b)
+    npg, n_phys = 9, 4 * 9 + 1
+    pool = torch.randint(0, 100, (n_phys, page) + feat, generator=g,
+                         device=cuda).to(dtype)
+    table = torch.randint(0, n_phys, (b, npg), generator=g, device=cuda,
+                          dtype=torch.int32)
+    alive = torch.ones(b, dtype=torch.bool, device=cuda)
+    alive[-1] = b == 1
+    before = page_gather.launches
+    got = page_gather(pool, table, alive)
+    torch.cuda.synchronize()
+    assert page_gather.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, ref.gather_pages_ref(pool, table, alive))
+    # the view of a pool slice (one layer of the stacked engine pools)
+    stacked = torch.stack([pool, pool.flip(0)])
+    assert torch.equal(page_gather(stacked[1], table, alive),
+                       ref.gather_pages_ref(stacked[1], table, alive))

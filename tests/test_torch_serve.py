@@ -275,18 +275,55 @@ def test_launcher_dense_random_and_uint8_layout(reduced_qwen_artifact):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ([], "module 5"),
+    # engine mode (the default): the engine of module 5 serves dense KV
+    # pages, so quantized pages are refused naming both modules
+    (["--kv-bits", "4"], "module 5"),
     (["--no-engine", "--kv-bits", "4"], "module 7"),
     (["--no-engine", "--temperature", "0.7"], "module 9"),
     (["--no-engine", "--snapshot-dir", "x"], "module 10"),
     (["--no-engine", "--mesh", "2x2"], "module 14"),
     (["--no-engine", "--serve-layout", "uint8", "--device", "cuda"],
      "section 2, kernel row 11"),
+    (["--kv-bits", "4"], "module 7"),
+    (["--temperature", "0.7"], "module 9"),
+    (["--snapshot-dir", "x"], "module 10"),
 ])
 def test_launcher_refuses_unported_flags(extra, item, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu"] + extra)
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+def test_launcher_engine_mode_serves_artifact_like_reference(
+        reduced_qwen_artifact, capsys):
+    """The default (engine) mode serves the reference-made artifact with
+    the module-5 flags; every finished stream equals the reference's
+    one-shot stream over the same prompts and block partition."""
+    d, rpm, rcfg = reduced_qwen_artifact
+    res = serve.main(["--packed", d, "--reduced", "--device", "cpu",
+                      "--requests", "5", "--slots", "2", "--prompt-len", "9",
+                      "--gen-len", "4", "--vary-gen", "--seed", "3",
+                      "--page-size", "4", "--pages", "5", "--token-budget",
+                      "8", "--deadline", "1000", "--queue-limit", "10"])
+    out = capsys.readouterr().out
+    assert "engine on cpu: 5 requests through 2 slots" in out
+    assert sorted(res["outputs"]) == list(range(5))
+    eng, stats = res["engine"], res["stats"]
+    assert eng.effective_chunk == 8 and eng.pool.n_pages == 5
+    assert stats["finished"] == 5 and stats["page_utilization_max"] > 0.5
+    assert eng.stats.generated_tokens == \
+        eng.stats.decode_tokens + eng.stats.prefill_samples
+    for key in ("prefill_ms_per_block", "decode_ms_per_step",
+                "tokens_per_s"):
+        assert res[key] > 0
+    gens = [r.max_new_tokens for r in res["requests"]]
+    assert len(set(gens)) > 1 and max(gens) <= 4
+    ref_toks, _ = ref_oneshot.greedy_generate(
+        rpm.serving_params(packed=True), rcfg, jnp.asarray(res["prompts"]),
+        4, block=8)
+    for r, n in enumerate(gens):
+        np.testing.assert_array_equal(res["outputs"][r],
+                                      np.asarray(ref_toks)[r, :n])
 
 
 def test_launcher_refuses_to_run_without_a_card():
