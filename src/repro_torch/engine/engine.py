@@ -1,5 +1,5 @@
 """The continuous-batching step loop (port of ``repro/engine/engine.py``,
-dense KV pages, greedy sampling, one device).
+dense or codebook-quantized KV pages, greedy sampling, one device).
 
 Each :meth:`Engine.step` mixes, under a per-step token budget:
 
@@ -34,10 +34,15 @@ slot while batch mates keep decoding.  :meth:`run` never raises: going
 past ``max_steps`` fails the stragglers and returns every completed
 stream.
 
-Not ported here: the device mesh (ROADMAP.md module 14), quantized KV
-pages (``kv_bits > 0``, module 7), sampling beyond greedy (module 9) and
-the chaos / snapshot hooks (module 10).  In PyTorch the step runs
-eagerly, so the reference's jit-cache counters have no counterpart.
+With ``kv_bits`` ∈ {2, 4, 8} the pages hold codebook-quantized K/V
+(bit-packed indices and per-page codebooks, ``kv_cb_mode`` "page" or
+"head"): each page's codebook is fit when its first row is written and
+frozen after, so storage is a pure function of the written values.
+
+Not ported here: the device mesh (ROADMAP.md module 14), sampling beyond
+greedy (module 9) and the chaos / snapshot hooks (module 10).  In PyTorch
+the step runs eagerly, so the reference's jit-cache counters have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -49,7 +54,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import kvquant
 from repro_torch.core.compression import torch_dtype
 from repro_torch.engine import sampling
 from repro_torch.engine.kvcache import PagePool
@@ -182,15 +186,18 @@ class Engine:
                  token_budget: Optional[int] = None,
                  prefill_chunk: int = 64, dtype=None,
                  queue_limit: Optional[int] = None,
-                 max_preemptions: int = 8, kv_bits: int = 0):
+                 max_preemptions: int = 8, kv_bits: int = 0,
+                 kv_cb_mode: str = "page"):
         if kv_bits:
-            kvquant.check_kv_bits(kv_bits)
-            raise NotImplementedError("quantized KV pages (kv_bits > 0) are "
-                                      "not ported yet: ROADMAP.md module 7")
+            # the knobs ride on the config, which the step functions read
+            # and check_ported validates; kv_bits == 0 leaves cfg as it is
+            cfg = dataclasses.replace(cfg, kv_bits=kv_bits,
+                                      kv_cb_mode=kv_cb_mode)
         check_ported(cfg)
         self.params = params
         self.cfg = cfg
         self.kv_bits = kv_bits
+        self.kv_cb_mode = kv_cb_mode
         self.device = _device_of(params)
         self.n_slots = n_slots
         self.page_size = page_size
@@ -451,11 +458,16 @@ class Engine:
             pos[i] = s.write_pos
             alive[i] = True
         dev = self.device
+        # quantized pages: the slots whose write starts a page fit its
+        # codebook this step (known here, so the step needs no host read)
+        fit = ({"fit_slots": [i for i in ready
+                              if pos[i] % self.page_size == 0]}
+               if self.kv_bits else {})
         t0 = time.perf_counter()
         logits, self.caches = self._decode(
             self.params, self.cfg, self.caches, self._page_table(),
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(alive).to(dev))
+            torch.from_numpy(alive).to(dev), **fit)
         nxt, bad = sampling.sample_and_flag(logits[:, 0])
         nxt, bad = nxt.cpu().numpy(), bad.cpu().numpy()
         self.stats.decode_step_s.append(time.perf_counter() - t0)
@@ -478,7 +490,9 @@ class Engine:
         may hold the non-finite K/V that poisoned it, and the next owner
         of a recycled page reads its rows past ``pos`` masked — a masked
         row still enters the plain versions' products as 0 × value, and
-        0 × NaN is NaN.  (The reference frees them as they are.)"""
+        0 × NaN is NaN.  With quantized pages that is the words and the
+        page codebooks, which a non-finite row turns to NaN when it is
+        fit.  (The reference frees them as they are.)"""
         s = self.sched.evict(i)
         self._scrub_pages(self.pool.pages_of(i))
         self.pool.free_slot(i)
@@ -489,6 +503,8 @@ class Engine:
         info["quarantined"] += 1
 
     def _scrub_pages(self, pages):
+        """Zero every pool of the given pages in every layer: dense K/V, or
+        the words and codebooks of quantized pages."""
         if not pages:
             return
         idx = torch.tensor(pages, device=self.device)

@@ -2,8 +2,8 @@
 CUDA kernel ``csrc/blockwise_prefill.cu`` and its wrapper.
 
 Replaces ``repro/kernels/blockwise_prefill.py:blockwise_prefill_pallas``
-(the dense variant; ``blockwise_prefill_quant_pallas`` is not ported
-yet).  C prompt queries attend over a stored view of S rows with GQA
+(the dense variant; the quantized one is
+:mod:`repro_torch.kernels.blockwise_prefill_quant`).  C prompt queries attend over a stored view of S rows with GQA
 grouping, position-derived masking (``k_pos <= q_pos``, optional window),
 optional softcap and an online softmax over ``token_tile`` rows.  Bound
 on the H100: operations, small at the serving shapes.  One block per

@@ -19,18 +19,20 @@
 //   one token tile at a time (the TPU kernel's sequential tile grid axis):
 //   stage the tile's K and V rows (coalesced), score R x T logits, update the
 //   row statistics one warp per row with shuffle reductions, then fold the
-//   tile's probabilities into the accumulator.  Shared-memory rows of Q and K
-//   are padded by one float so that the score loop is free of bank conflicts.
-#include <cmath>
-
+//   tile's probabilities into the accumulator (the online-softmax step shared
+//   with the other attention kernels, online_softmax.cuh; rows that are not
+//   visible are selected out of the products).  Shared-memory rows of Q and
+//   K are padded by one float so that the score loop is free of bank
+//   conflicts.
+#include "online_softmax.cuh"
 #include "unpack.cuh"
 
 namespace {
 
+using repro::kEps;
+using repro::kNegInf;
+
 constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
-constexpr float kEps = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Geometry {
   int R, QB, hd, vd, T;
@@ -83,8 +85,6 @@ blockwise_prefill_kernel(const float* __restrict__ q,
   const int c0 = blockIdx.x * QB;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kWarps = kThreads / 32;
 
   // Row i holds query position c0 + i % QB of head kvh * rep + i / QB.
   for (int idx = threadIdx.x; idx < R * hd; idx += kThreads) {
@@ -115,59 +115,14 @@ blockwise_prefill_kernel(const float* __restrict__ q,
     for (int t = threadIdx.x; t < T; t += kThreads) Kpos[t] = k_pos[s0 + t];
     __syncthreads();
 
-    // masked, scaled (and softcapped) logits
-    for (int idx = threadIdx.x; idx < R * T; idx += kThreads) {
-      const int i = idx / T, t = idx % T;
-      const float* qr = Qs + i * (hd + 1);
-      const float* kr = Ks + t * (hd + 1);
-      float dot = 0.0f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      float logit = dot * scale;
-      if (softcap > 0.0f) logit = softcap * tanhf(logit / softcap);
-      const int qp = Qpos[i % QB], kp = Kpos[t];
-      bool ok = kp <= qp;
-      if (window > 0) ok = ok && (qp - kp) < window;
-      P[i * (T + 1) + t] = ok ? logit : kNegInf;
-    }
+    const repro::CausalVisible visible{Qpos, Kpos, QB, window};
+    repro::score_tile<kThreads>(Qs, hd + 1, Ks, hd + 1, P, T + 1, R, T, hd,
+                                scale, softcap, visible);
     __syncthreads();
-
-    // online-softmax statistics, one warp per row
-    for (int i = warp; i < R; i += kWarps) {
-      float* pr = P + i * (T + 1);
-      float mx = kNegInf;
-      for (int t = lane; t < T; t += 32) mx = fmaxf(mx, pr[t]);
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_old = Ms[i];
-      const float m_new = fmaxf(m_old, mx);
-      const int qp = Qpos[i % QB];
-      float sum = 0.0f;
-      for (int t = lane; t < T; t += 32) {
-        const int kp = Kpos[t];
-        bool ok = kp <= qp;
-        if (window > 0) ok = ok && (qp - kp) < window;
-        const float p = ok ? expf(pr[t] - m_new) : 0.0f;
-        pr[t] = p;
-        sum += p;
-      }
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Corr[i] = corr;
-        Ms[i] = m_new;
-        Ls[i] = Ls[i] * corr + sum;
-      }
-    }
+    repro::softmax_stats<kThreads>(P, T + 1, R, T, Ms, Ls, Corr, visible);
     __syncthreads();
-
-    // acc = acc * corr + P . V
-    for (int idx = threadIdx.x; idx < R * vd; idx += kThreads) {
-      const int i = idx / vd, e = idx % vd;
-      const float* pr = P + i * (T + 1);
-      float pv = 0.0f;
-      for (int t = 0; t < T; ++t) pv = fmaf(pr[t], Vs[t * vd + e], pv);
-      Acc[idx] = Acc[idx] * Corr[i] + pv;
-    }
+    repro::accumulate_tile<kThreads>(P, T + 1, Vs, vd, Acc, Corr, R, T, vd,
+                                     visible);
   }
   __syncthreads();
 

@@ -21,18 +21,18 @@
 //   staged, scored and summed: rows past pos (a recycled page may hold any
 //   bits) are masked by select and never enter an arithmetic operation.
 //   Shared-memory rows of Q and K are padded by one float so the score loop is
-//   free of bank conflicts.  Physical ids outside [0, P] are clamped.
-#include <cmath>
-
+//   free of bank conflicts.  Physical ids outside [0, P] are clamped.  The
+//   online-softmax step is the one shared with the other attention kernels
+//   (online_softmax.cuh).
+#include "online_softmax.cuh"
 #include "unpack.cuh"
 
 namespace {
 
+using repro::kEps;
+using repro::kNegInf;
+
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
-constexpr float kEps = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Geometry {
   // float offsets of each shared-memory region
@@ -77,7 +77,6 @@ paged_attention_kernel(const float* __restrict__ q,
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // Row r holds head kvh * rep + r.
   for (int idx = threadIdx.x; idx < rep * hd; idx += kThreads) {
@@ -109,53 +108,15 @@ paged_attention_kernel(const float* __restrict__ q,
     }
     __syncthreads();
 
-    // scaled (and softcapped) logits of the visible rows
-    for (int idx = threadIdx.x; idx < rep * n_valid; idx += kThreads) {
-      const int r = idx / n_valid, t = idx % n_valid;
-      const float* qr = Qs + r * (hd + 1);
-      const float* kr = Ks + t * (hd + 1);
-      float dot = 0.0f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      float logit = dot * scale;
-      if (softcap > 0.0f) logit = softcap * tanhf(logit / softcap);
-      P[r * page + t] = logit;
-    }
+    // only rows t <= pos were staged: all of them are visible
+    const repro::AllVisible all;
+    repro::score_tile<kThreads>(Qs, hd + 1, Ks, hd + 1, P, page, rep,
+                                n_valid, hd, scale, softcap, all);
     __syncthreads();
-
-    // online-softmax statistics, one warp per row
-    for (int r = warp; r < rep; r += kWarps) {
-      float* pr = P + r * page;
-      float mx = kNegInf;
-      for (int t = lane; t < n_valid; t += 32) mx = fmaxf(mx, pr[t]);
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int t = lane; t < n_valid; t += 32) {
-        const float p = expf(pr[t] - m_new);
-        pr[t] = p;
-        sum += p;
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(kFull, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Corr[r] = corr;
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * corr + sum;
-      }
-    }
+    repro::softmax_stats<kThreads>(P, page, rep, n_valid, Ms, Ls, Corr, all);
     __syncthreads();
-
-    // acc = acc * corr + P . V over the visible rows
-    for (int idx = threadIdx.x; idx < rep * hd; idx += kThreads) {
-      const int r = idx / hd, e = idx % hd;
-      const float* pr = P + r * page;
-      float pv = 0.0f;
-      for (int t = 0; t < n_valid; ++t) pv = fmaf(pr[t], Vs[t * hd + e], pv);
-      Acc[idx] = Acc[idx] * Corr[r] + pv;
-    }
+    repro::accumulate_tile<kThreads>(P, page, Vs, hd, Acc, Corr, rep,
+                                     n_valid, hd, all);
   }
   __syncthreads();
 

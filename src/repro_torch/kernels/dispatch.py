@@ -25,6 +25,8 @@ from repro_torch.core.compression import (PackedLayout, torch_dtype,
                                           unpack_indices_2d, unpack_rows)
 from repro_torch.kernels import ref
 from repro_torch.kernels.blockwise_prefill import blockwise_prefill
+from repro_torch.kernels.blockwise_prefill_quant import \
+    blockwise_prefill_quant
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
@@ -33,6 +35,8 @@ from repro_torch.kernels.codebook_matmul_packed_t import \
 from repro_torch.kernels.page_gather import page_gather
 from repro_torch.kernels.paged_attention import paged_attention as \
     _paged_attention
+from repro_torch.kernels.paged_attention_quant import \
+    paged_attention_quant as _paged_attention_quant
 from repro_torch.kernels.quantized_gather import quantized_gather as \
     _quantized_gather_rows
 
@@ -45,6 +49,8 @@ KERNELS = {
     "blockwise_prefill": blockwise_prefill,
     "page_gather": page_gather,
     "paged_attention": _paged_attention,
+    "blockwise_prefill_quant": blockwise_prefill_quant,
+    "paged_attention_quant": _paged_attention_quant,
 }
 
 
@@ -123,8 +129,33 @@ def blockwise_prefill_attention(q, k, v, q_pos, k_pos, *,
     return out.to(v.dtype)
 
 
+def blockwise_prefill_attention_quant(q, k_words, v_words, k_cb, v_cb,
+                                      q_pos, k_pos, *, page_size: int,
+                                      bits: int, head_dim: int,
+                                      window: Optional[int] = None,
+                                      softcap: Optional[float] = None,
+                                      scale: float) -> torch.Tensor:
+    """Chunked-prompt prefill over the slot's codebook-quantized pages:
+    word view [B, S, KV, Wd] (S = npg·page_size, logical row order) +
+    per-page codebooks [B, npg, Gcb, K] → [B, C, H, head_dim] in the
+    codebook dtype.  The tile is ``prefill_token_tile("quant", head_dim,
+    page_size=page_size)``, as in the reference: it divides the page, so
+    the view needs no padding."""
+    tile = prefill_token_tile("quant", head_dim, page_size=page_size)
+    s = k_words.shape[1]
+    if s % page_size:
+        raise ValueError(f"quantized view rows {s} not a multiple of "
+                         f"page_size={page_size}")
+    out = blockwise_prefill_quant(
+        q.contiguous(), k_words, v_words, k_cb.contiguous(),
+        v_cb.contiguous(), q_pos, k_pos.to(torch.int32), page_size=page_size,
+        bits=bits, head_dim=head_dim, window=window, softcap=softcap,
+        scale=scale, token_tile=tile)
+    return out.to(k_cb.dtype)
+
+
 # ---------------------------------------------------------------------------
-# Paged KV (continuous-batching engine, dense pages)
+# Paged KV (continuous-batching engine, dense and quantized pages)
 # ---------------------------------------------------------------------------
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -139,6 +170,23 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = _paged_attention(q.contiguous(), k_pool, v_pool, page_table, pos,
                            alive, softcap=softcap, scale=scale)
     return out.to(k_pool.dtype)
+
+
+def paged_attention_quant(q: torch.Tensor, k_words: torch.Tensor,
+                          v_words: torch.Tensor, k_cb: torch.Tensor,
+                          v_cb: torch.Tensor, page_table: torch.Tensor,
+                          pos: torch.Tensor, alive: torch.Tensor, *,
+                          bits: int, head_dim: int,
+                          softcap: Optional[float] = None,
+                          scale: float) -> torch.Tensor:
+    """Paged GQA decode over codebook-quantized KV pages (bits/8 bytes per
+    cached scalar): word pools [P+1, page, KV, Wd] + per-page codebooks
+    [P+1, Gcb, K] → [B, 1, H·hd] in the codebook dtype."""
+    out = _paged_attention_quant(q.contiguous(), k_words, v_words, k_cb,
+                                 v_cb, page_table, pos, alive, bits=bits,
+                                 head_dim=head_dim, softcap=softcap,
+                                 scale=scale)
+    return out.to(k_cb.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -169,3 +169,82 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     valid = (idx[None, :] <= pos.long()[:, None]) & alive.bool()[:, None]
     return decode_attention_ref(q, gk, gv, valid, softcap=softcap,
                                 scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Codebook-quantized KV pages
+#
+# Word pools hold the ``pack_rows`` layout over the trailing feature axis
+# (int32 bit patterns, or uint32) with one codebook per page and group:
+# cbs [P+1, Gcb, K], Gcb = 1 ("page" mode) or KV ("head" mode).  The
+# dequantized view is a pure gather, so these versions equal the dense
+# ones on the dequantized pools bit for bit.
+# ---------------------------------------------------------------------------
+
+def _lut(idx: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """idx [B, npg, page, ..., d] + per-page codebooks cb [B, npg, Gcb, K]
+    → values [B, npg, page, ..., d]: each page's codebooks broadcast over
+    its rows (and over the group axis when Gcb == 1)."""
+    cb = cb.reshape(cb.shape[:2] + (1,) * (idx.ndim - cb.ndim)
+                    + cb.shape[2:])
+    cb_b = cb.expand(idx.shape[:-1] + cb.shape[-1:])
+    return torch.gather(cb_b, -1, idx)
+
+
+def dequant_pages_ref(words: torch.Tensor, cbs: torch.Tensor,
+                      page_table: torch.Tensor, alive: torch.Tensor, d: int,
+                      bits: int) -> torch.Tensor:
+    """Gather + dequantize quantized pages into the logical view: words
+    [P+1, page, ..., Wd]; cbs [P+1, Gcb, K]; dead slots read the trash
+    page → [B, npg·page, ..., d] in the codebook dtype."""
+    b, npg = page_table.shape
+    table = torch.where(alive.bool()[:, None], page_table.long(), 0)
+    w = words.view(torch.int32)[table]               # [B, npg, page, ..., Wd]
+    idx = unpack_rows(w, d, 1 << bits)
+    vals = _lut(idx, cbs[table])
+    return vals.reshape((b, npg * words.shape[1]) + tuple(vals.shape[3:]))
+
+
+def paged_attention_quant_ref(q: torch.Tensor, k_words: torch.Tensor,
+                              v_words: torch.Tensor, k_cb: torch.Tensor,
+                              v_cb: torch.Tensor, page_table: torch.Tensor,
+                              pos: torch.Tensor, alive: torch.Tensor, *,
+                              bits: int, head_dim: int,
+                              softcap: Optional[float] = None,
+                              scale: float) -> torch.Tensor:
+    """Plain version of ``paged_attention_quant``: dequantize the slots'
+    pages through their stored codebooks, then the dense route's math
+    (dead slots follow the jnp spec, as in :func:`paged_attention_ref`)."""
+    gk = dequant_pages_ref(k_words, k_cb, page_table, alive, head_dim, bits)
+    gv = dequant_pages_ref(v_words, v_cb, page_table, alive, head_dim, bits)
+    idx = torch.arange(gk.shape[1], device=q.device)
+    valid = (idx[None, :] <= pos.long()[:, None]) & alive.bool()[:, None]
+    return decode_attention_ref(q, gk, gv, valid, softcap=softcap,
+                                scale=scale)
+
+
+def dequant_view_ref(words: torch.Tensor, cbs: torch.Tensor, d: int,
+                     bits: int, page_size: int) -> torch.Tensor:
+    """Dequantize a gathered word view: words [B, S, ..., Wd] (S =
+    npg·page_size, logical row order); cbs [B, npg, Gcb, K] → [B, S, ...,
+    d].  The same unpack and per-page LUT as :func:`dequant_pages_ref`."""
+    b, s = words.shape[:2]
+    npg = cbs.shape[1]
+    idx = unpack_rows(words, d, 1 << bits)
+    idx = idx.reshape((b, npg, page_size) + tuple(idx.shape[2:]))
+    vals = _lut(idx, cbs)
+    return vals.reshape((b, s) + tuple(vals.shape[3:]))
+
+
+def blockwise_prefill_quant_ref(q, k_words, v_words, k_cb, v_cb, q_pos,
+                                k_pos, *, page_size, bits, head_dim,
+                                window=None, softcap=None, scale,
+                                token_tile):
+    """Plain version of ``blockwise_prefill_quant``: dequantize the word
+    view through its per-page codebooks, then the dense recurrence of
+    :func:`blockwise_prefill_ref`.  Returns [B, C, H, hd] f32."""
+    gk = dequant_view_ref(k_words, k_cb, head_dim, bits, page_size)
+    gv = dequant_view_ref(v_words, v_cb, head_dim, bits, page_size)
+    return blockwise_prefill_ref(q, gk, gv, q_pos, k_pos, window=window,
+                                 softcap=softcap, scale=scale,
+                                 token_tile=token_tile)

@@ -5,12 +5,16 @@ the continuous-batching engine, or the one-shot loop with ``--no-engine``.
         --requests 8 --slots 4 --prompt-len 128 --gen-len 16 --vary-gen
 
 By default requests flow through ``repro_torch.engine.Engine``: a request
-queue feeding a fixed set of batch slots, a paged KV cache of dense pages
-(fixed-size pages + per-slot page table, finished requests' pages reused
-at once), blockwise prefill mixed with decode under a per-step token
-budget, and greedy sampling.  ``--no-engine`` runs the one-shot lockstep
-loop (``repro_torch.engine.oneshot``, the engine's oracle) over
-``--batch`` prompts.
+queue feeding a fixed set of batch slots, a paged KV cache (fixed-size
+pages + per-slot page table, finished requests' pages reused at once),
+blockwise prefill mixed with decode under a per-step token budget, and
+greedy sampling.  The pages are dense, or with ``--kv-bits {2,4,8}``
+codebook-quantized (bit-packed indices + per-page codebooks, one per page
+or with ``--kv-cb head`` one per kv head), read by the quantized
+blockwise-prefill and paged-attention kernels.  ``--no-engine`` runs the
+one-shot lockstep loop (``repro_torch.engine.oneshot``, the engine's
+oracle) over ``--batch`` prompts; it keeps dense KV and refuses
+``--kv-bits``.
 
 ``--packed DIR`` serves a PackedModel artifact (the reference's npz +
 ``manifest.json`` format): with ``--serve-layout packed`` every quantized
@@ -47,9 +51,6 @@ _NOT_PORTED = {
     "mesh": "module 14 (distributed)",
     "host_devices": "module 14 (distributed)",
     "ckpt_dir": "module 13 (LC training and its checkpoints)",
-    "kv_bits": "module 7, the quantized KV cache; the engine of "
-               "ROADMAP.md module 5 serves dense KV pages",
-    "kv_cb": "module 7 (quantized KV cache)",
     "temperature": "module 9 (sampling beyond greedy)",
     "top_k": "module 9 (sampling beyond greedy)",
     "snapshot_dir": "module 10 (fault tolerance)",
@@ -94,8 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "prefill)")
     ap.add_argument("--vary-gen", action="store_true",
                     help="stagger request gen lengths (engine mode)")
-    ap.add_argument("--kv-bits", type=int, default=0, choices=(0, 2, 4, 8))
-    ap.add_argument("--kv-cb", default=None, choices=("page", "head"))
+    ap.add_argument("--kv-bits", type=int, default=0, choices=(0, 2, 4, 8),
+                    help="codebook-quantize the engine's KV pages to this "
+                         "many bits (0 = dense pages)")
+    ap.add_argument("--kv-cb", default=None, choices=("page", "head"),
+                    help="KV codebook grouping: one per page (the default) "
+                         "or one per (page, kv head)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0,
@@ -116,6 +121,10 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
         if getattr(args, dest) != ap.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if args.no_engine and (args.kv_bits or args.kv_cb is not None):
+        ap.error("--kv-bits / --kv-cb quantize the engine's KV pages "
+                 "(ROADMAP.md module 7); the one-shot oracle (--no-engine) "
+                 "keeps dense KV")
 
 
 def _load_params(args, cfg, device):
@@ -199,7 +208,8 @@ def _serve_engine(args, cfg, params, device) -> dict:
     eng = Engine(params, cfg, n_slots=n_slots, page_size=args.page_size,
                  max_seq=args.prompt_len + args.gen_len, n_pages=args.pages,
                  token_budget=args.token_budget,
-                 queue_limit=args.queue_limit)
+                 queue_limit=args.queue_limit, kv_bits=args.kv_bits,
+                 kv_cb_mode=args.kv_cb or "page")
     outs = eng.run(reqs)
     for r in sorted(eng.results):
         res = eng.results[r]
@@ -214,8 +224,10 @@ def _serve_engine(args, cfg, params, device) -> dict:
               f"finished")
     s = eng.stats.summary()
     where = _where(device)
-    print(f"engine on {where}: {n_req} requests through {n_slots} slots, "
-          f"{s['delivered_tokens']} tokens in {s['steps']} steps "
+    kv = (f"kv {args.kv_bits}-bit {eng.kv_cb_mode} codebooks"
+          if args.kv_bits else "dense kv")
+    print(f"engine on {where}: {n_req} requests through {n_slots} slots "
+          f"({kv}), {s['delivered_tokens']} tokens in {s['steps']} steps "
           f"({s['tokens_per_s']:.1f} tokens/s, prefill "
           f"{s['prefill_ms_per_block']:.3f} ms/block, decode "
           f"{s['decode_ms_per_step']:.3f} ms/step, occupancy "

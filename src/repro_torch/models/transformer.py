@@ -10,9 +10,9 @@ slices each leaf ``[g]`` (a view, no copy).
 Ported: global GQA mixers with dense (gated) MLPs — ``init_params``,
 ``prefill(block=…)`` (blockwise, through the blockwise-prefill kernel),
 ``init_cache`` and ``decode_step``, and the engine's entry points over
-dense KV pages: ``init_paged_cache``, ``decode_step_slots`` and
-``prefill_chunk_slots``.  Other mixers / MLP kinds, sliding windows,
-sinusoidal positions, VLM patches and the quantized KV cache raise
+dense or codebook-quantized KV pages (``cfg.kv_bits``): ``init_paged_cache``,
+``decode_step_slots`` and ``prefill_chunk_slots``.  Other mixers / MLP
+kinds, sliding windows, sinusoidal positions and VLM patches raise
 ``NotImplementedError`` naming the ROADMAP.md module that ports them.
 """
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.convert import tree_map
+from repro_torch.core import kvquant
 from repro_torch.kernels.ref import full_f32
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -113,8 +114,10 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError("sinusoidal positions / VLM patches are "
                                   "not ported yet: ROADMAP.md module 8")
     if cfg.kv_bits:
-        raise NotImplementedError("the quantized KV cache is not ported "
-                                  "yet: ROADMAP.md module 7")
+        kvquant.check_kv_bits(cfg.kv_bits)
+        if cfg.kv_cb_mode not in ("page", "head"):
+            raise ValueError(f"kv_cb_mode={cfg.kv_cb_mode!r}; choose 'page' "
+                             f"or 'head'")
 
 
 # ---------------------------------------------------------------------------
@@ -335,46 +338,80 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_size: int, dtype=torch.float32, device=None):
     """Engine caches mirroring the param stacks: leaves
-    [G, n_pages + 1, page, KV, hd].  ``n_slots`` sizes the per-slot state
-    of the mixers that keep one (none among the ported ones)."""
+    [G, n_pages + 1, page, KV, hd] (``PagedKVCache``), or with
+    ``cfg.kv_bits`` word pools [G, n_pages + 1, page, KV, Wd] int32 and
+    codebooks [G, n_pages + 1, Gcb, K] (``QuantPagedKVCache``).
+    ``n_slots`` sizes the per-slot state of the mixers that keep one (none
+    among the ported ones)."""
     del n_slots
     check_ported(cfg)
     caches = []
     for spec in cfg.stacks:
         stack = {}
         for pi in range(len(spec.pattern)):
-            one = attn.init_paged_kv_cache(n_pages, page_size, cfg.n_kv,
-                                           cfg.head_dim, dtype, device)
-            stack[f"pos{pi}"] = attn.PagedKVCache(
+            if cfg.kv_bits:
+                one = attn.init_quant_paged_kv_cache(
+                    n_pages, page_size, cfg.n_kv, cfg.head_dim, cfg.kv_bits,
+                    cfg.kv_cb_mode, dtype, device)
+            else:
+                one = attn.init_paged_kv_cache(n_pages, page_size, cfg.n_kv,
+                                               cfg.head_dim, dtype, device)
+            stack[f"pos{pi}"] = type(one)(
                 *(t.expand((spec.groups,) + t.shape).clone() for t in one))
         caches.append(stack)
     return tuple(caches)
 
 
+def cache_page_size(stack_caches) -> int:
+    """Page size of one stack's engine caches, dense or quantized (the
+    pools' page axis)."""
+    c = stack_caches["pos0"]
+    pool = c.k_words if isinstance(c, attn.QuantPagedKVCache) else c.k
+    return pool.shape[2]
+
+
 def decode_step_slots(params, cfg: ModelConfig, caches,
                       page_table: torch.Tensor, tokens_t: torch.Tensor,
-                      pos: torch.Tensor, alive: torch.Tensor):
+                      pos: torch.Tensor, alive: torch.Tensor,
+                      fit_slots: Optional[List[int]] = None):
     """Slot-aware serve step of the engine.
 
     tokens_t [B, 1] (B = n_slots); page_table [B, npg] int32; pos [B]
     per-slot write positions; alive [B] bool.  Dead / page-starved slots
     are masked: their attention reads are invalid and their pool writes
-    land on the trash page.  Returns (logits [B, 1, V] f32, caches) — the
-    pools are written in place."""
+    land on the trash page.  With quantized pages, ``fit_slots`` lists the
+    slots whose write starts a page (their codebooks are fit this step);
+    without it they are read from ``pos`` on the host.  Returns (logits
+    [B, 1, V] f32, caches) — the pools are written in place."""
     full_f32()
     x = _embed(params, cfg, tokens_t)
+    rows = None
     for spec, sp, sc in zip(cfg.stacks, params["stacks"], caches):
-        page_size = sc["pos0"].k.shape[2]
+        page_size = cache_page_size(sc)
+        if cfg.kv_bits and rows is None:
+            rows = (attn.first_write_slots(pos, page_size)
+                    if fit_slots is None
+                    else torch.tensor(fit_slots, dtype=torch.long,
+                                      device=pos.device))
         for g in range(spec.groups):
             for pi, kind in enumerate(spec.pattern):
                 p = _group(sp[f"pos{pi}"], g)
                 c = _group(sc[f"pos{pi}"], g)
-                out, _ = attn.gqa_decode_paged(
-                    p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]), c,
-                    page_table, pos, alive, n_heads=cfg.n_heads,
-                    n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                    page_size=page_size, attn_softcap=cfg.attn_softcap,
-                    rope_theta=cfg.rope_theta, query_scale=cfg.query_scale)
+                h = L.rms_norm(x, p["ln1_norm_scale"])
+                kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                          head_dim=cfg.head_dim, page_size=page_size,
+                          attn_softcap=cfg.attn_softcap,
+                          rope_theta=cfg.rope_theta,
+                          query_scale=cfg.query_scale)
+                if cfg.kv_bits:
+                    out, _ = attn.gqa_decode_paged_quant(
+                        p["mixer"], h, c, page_table, pos, alive,
+                        kv_bits=cfg.kv_bits, kv_cb_mode=cfg.kv_cb_mode,
+                        fit_slots=rows, **kw)
+                else:
+                    out, _ = attn.gqa_decode_paged(p["mixer"], h, c,
+                                                   page_table, pos, alive,
+                                                   **kw)
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x), caches
@@ -395,17 +432,24 @@ def prefill_chunk_slots(params, cfg: ModelConfig, caches,
     alive = torch.ones(1, dtype=torch.bool, device=tokens_c.device)
     x = _embed(params, cfg, tokens_c)
     for spec, sp, sc in zip(cfg.stacks, params["stacks"], caches):
-        page_size = sc["pos0"].k.shape[2]
+        page_size = cache_page_size(sc)
         for g in range(spec.groups):
             for pi, kind in enumerate(spec.pattern):
                 p = _group(sp[f"pos{pi}"], g)
                 c = _group(sc[f"pos{pi}"], g)
-                out, _ = attn.gqa_prefill_block_paged(
-                    p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]), c,
-                    table_row, start, alive, n_heads=cfg.n_heads,
-                    n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                    page_size=page_size, attn_softcap=cfg.attn_softcap,
-                    rope_theta=cfg.rope_theta, query_scale=cfg.query_scale)
+                h = L.rms_norm(x, p["ln1_norm_scale"])
+                kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                          head_dim=cfg.head_dim, page_size=page_size,
+                          attn_softcap=cfg.attn_softcap,
+                          rope_theta=cfg.rope_theta,
+                          query_scale=cfg.query_scale)
+                if cfg.kv_bits:
+                    out, _ = attn.gqa_prefill_block_paged_quant(
+                        p["mixer"], h, c, table_row, start, alive,
+                        kv_bits=cfg.kv_bits, kv_cb_mode=cfg.kv_cb_mode, **kw)
+                else:
+                    out, _ = attn.gqa_prefill_block_paged(
+                        p["mixer"], h, c, table_row, start, alive, **kw)
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x[:, -1:, :]), caches

@@ -12,13 +12,18 @@ import pytest
 import torch
 
 from repro_torch.core import compression as tc
+from repro_torch.core import kvquant
 from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels.blockwise_prefill_quant import \
+    blockwise_prefill_quant
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
 from repro_torch.kernels.page_gather import page_gather
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention_quant import paged_attention_quant
 from repro_torch.kernels.quantized_gather import quantized_gather
+from repro_torch.models import attention as attn
 
 KS = (2, 4, 16, 256)
 PREFILL_CASES = {
@@ -213,3 +218,114 @@ def test_cuda_page_gather_exact(cuda, dtype, feat, page, b):
     stacked = torch.stack([pool, pool.flip(0)])
     assert torch.equal(page_gather(stacked[1], table, alive),
                        ref.gather_pages_ref(stacked[1], table, alive))
+
+
+# ---------------------------------------------------------------------------
+# Codebook-quantized KV pages (kernel rows 5 and 7)
+# ---------------------------------------------------------------------------
+
+QUANT_CASES = [(bits, mode) for bits in (2, 4, 8) for mode in ("page", "head")]
+
+
+def _quant_pool(g, cuda, n_phys, page, kv, hd, bits, mode):
+    """Random word pools [n_phys, page, KV, Wd] (any bits, ragged last word
+    included) and sorted random codebooks [n_phys, Gcb, 2**bits]."""
+    wd = kvquant.words_per(hd, bits)
+    gcb = kv if mode == "head" else 1
+    shape = (n_phys, page, kv, wd)
+    kw, vw = (torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                            device=cuda, dtype=torch.int64).to(torch.int32)
+              for _ in range(2))
+    kc, vc = (torch.sort(torch.randn(n_phys, gcb, 1 << bits, generator=g,
+                                     device=cuda), dim=-1)[0]
+              for _ in range(2))
+    return kw, vw, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,mode", QUANT_CASES)
+@pytest.mark.parametrize("rep,hd,page,softcap", [
+    (1, 64, 16, None), (2, 128, 8, 30.0), (4, 12, 16, None)])
+def test_cuda_paged_attention_quant(cuda, bits, mode, rep, hd, page,
+                                    softcap):
+    kv, npg, b = 2, 3, 5
+    g = torch.Generator(device=cuda).manual_seed(bits * 100 + hd)
+    n_phys = b * npg + 1
+    kw, vw, kc, vc = _quant_pool(g, cuda, n_phys, page, kv, hd, bits, mode)
+    q = 3 * torch.randn(b, 1, kv * rep, hd, generator=g, device=cuda)
+    perm = torch.randperm(n_phys - 1, generator=g, device=cuda)[:b * npg] + 1
+    table = perm.reshape(b, npg).to(torch.int32)
+    pos = torch.tensor([0, page - 1, page, npg * page - 1, 5],
+                       dtype=torch.int32, device=cuda)
+    alive = torch.tensor([True, True, True, True, False], device=cuda)
+    kw_ = dict(bits=bits, head_dim=hd, softcap=softcap, scale=hd ** -0.5)
+    before = paged_attention_quant.launches
+    got = paged_attention_quant(q, kw, vw, kc, vc, table, pos, alive, **kw_)
+    torch.cuda.synchronize()
+    assert paged_attention_quant.launches == before + 1
+    _check_paged(got, ref.paged_attention_quant_ref(
+        q, kw, vw, kc, vc, table, pos, alive, **kw_), alive)
+    dead = torch.zeros_like(alive)
+    got = paged_attention_quant(q, kw, vw, kc, vc, table, pos, dead, **kw_)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,mode", QUANT_CASES)
+@pytest.mark.parametrize("rep,hd,window,softcap", [
+    (1, 64, None, None), (2, 12, 5, 30.0), (4, 128, None, 30.0)])
+def test_cuda_blockwise_prefill_quant(cuda, bits, mode, rep, hd, window,
+                                      softcap):
+    b, c, kv, page, npg, start = 2, 13, 2, 8, 4, 9
+    g = torch.Generator(device=cuda).manual_seed(bits * 10 + rep)
+    kw, vw, kc, vc = _quant_pool(g, cuda, b * npg, page, kv, hd, bits, mode)
+    s = npg * page
+    view = [t.reshape((b, s) + t.shape[2:]) for t in (kw, vw)]
+    cbs = [t.reshape((b, npg) + t.shape[1:]) for t in (kc, vc)]
+    q = torch.randn(b, c, kv * rep, hd, generator=g, device=cuda)
+    q_pos = torch.arange(start, start + c, device=cuda)
+    k_pos = torch.arange(s, device=cuda)
+    kw_ = dict(page_size=page, bits=bits, head_dim=hd, window=window,
+               softcap=softcap, scale=hd ** -0.5)
+    before = blockwise_prefill_quant.launches
+    got = dispatch.blockwise_prefill_attention_quant(q, *view, *cbs, q_pos,
+                                                     k_pos, **kw_)
+    torch.cuda.synchronize()
+    assert blockwise_prefill_quant.launches == before + 1
+    want = dispatch.blockwise_prefill_attention_quant(
+        q.cpu(), *(t.cpu() for t in view + cbs), q_pos.cpu(), k_pos.cpu(),
+        **kw_)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["page", "head"])
+def test_cuda_quant_write_path_is_deterministic_and_attended(cuda, mode):
+    """Pools written by the port's quantizing write path on the card: the
+    codebook fit gives the same bits on every run, and both kernels agree
+    with their plain versions over what it stored."""
+    bits, b, kv, hd, page, npg = 4, 3, 4, 64, 8, 4
+    g = torch.Generator(device=cuda).manual_seed(7)
+    table = (torch.randperm(b * npg, generator=g, device=cuda) + 1).reshape(
+        b, npg).to(torch.int32)
+    alive = torch.tensor([True, True, False], device=cuda)
+    new = torch.randn(b, 2 * page + 3, kv, hd, generator=g, device=cuda)
+    runs = []
+    for _ in range(2):
+        cache = attn.init_quant_paged_kv_cache(b * npg, page, kv, hd, bits,
+                                               mode, device=cuda)
+        attn._write_block_slot_quant(cache.k_words, cache.k_cb, table, 3,
+                                     alive, new, page, bits, mode)
+        runs.append(cache)
+    assert torch.equal(runs[0].k_words, runs[1].k_words)
+    assert torch.equal(runs[0].k_cb, runs[1].k_cb)
+    words, cbs = runs[0].k_words, runs[0].k_cb
+    pos = torch.tensor([2 * page + 5, 3, 0], dtype=torch.int32, device=cuda)
+    q = torch.randn(b, 1, kv, hd, generator=g, device=cuda)
+    kw_ = dict(bits=bits, head_dim=hd, scale=hd ** -0.5)
+    got = paged_attention_quant(q, words, words, cbs, cbs, table, pos, alive,
+                                **kw_)
+    torch.cuda.synchronize()
+    _check_paged(got, ref.paged_attention_quant_ref(
+        q, words, words, cbs, cbs, table, pos, alive, **kw_), alive)

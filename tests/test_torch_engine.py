@@ -273,8 +273,9 @@ def test_engine_max_steps_partials_and_unported_modes():
     with pytest.raises(NotImplementedError, match="module 9"):
         eng.submit(Request(rid=5, prompt=p8[0], temperature=0.7))
     assert 5 not in eng.results
-    with pytest.raises(NotImplementedError, match="module 7"):
-        Engine(params, CFG, kv_bits=4)
+    # quantized KV pages (module 7) are ported: bad knobs are refused
+    with pytest.raises(ValueError, match="kv_cb_mode"):
+        Engine(params, CFG, kv_bits=4, kv_cb_mode="tensor")
     with pytest.raises(ValueError, match="kv_bits"):
         Engine(params, CFG, kv_bits=3)
 

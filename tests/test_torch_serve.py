@@ -19,12 +19,15 @@ from repro.analysis.zoo import tiny_cfg as ref_tiny_cfg
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduce_config as ref_reduce_config
 from repro.core import PackedModel as RefPackedModel
+from repro.engine import Engine as RefEngine
+from repro.engine import Request as RefRequest
 from repro.engine import oneshot as ref_oneshot
 from repro.models import transformer as RT
 from repro_torch import configs
 from repro_torch.convert import from_numpy_tree, tree_leaves
 from repro_torch.core.compression import PackedModel
 from repro_torch.engine import oneshot
+from repro_torch.kernels import dispatch
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 
@@ -213,8 +216,10 @@ def test_unported_layer_kinds_raise():
         bad = dataclasses.replace(cfg, stacks=(T.StackSpec((kind,), 1),))
         with pytest.raises(NotImplementedError, match=item):
             T.init_params(bad, gen)
-    with pytest.raises(NotImplementedError, match="module 7"):
-        T.check_ported(dataclasses.replace(cfg, kv_bits=4))
+    # the quantized KV cache (module 7) is ported: its knobs are checked
+    T.check_ported(dataclasses.replace(cfg, kv_bits=4, kv_cb_mode="head"))
+    with pytest.raises(ValueError, match="kv_bits"):
+        T.check_ported(dataclasses.replace(cfg, kv_bits=3))
 
 
 @pytest.fixture(scope="module")
@@ -275,16 +280,16 @@ def test_launcher_dense_random_and_uint8_layout(reduced_qwen_artifact):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # engine mode (the default): the engine of module 5 serves dense KV
-    # pages, so quantized pages are refused naming both modules
-    (["--kv-bits", "4"], "module 5"),
+    # the one-shot oracle keeps dense KV: the quantized-KV flags of the
+    # engine (module 7) are refused there
+    (["--no-engine", "--kv-cb", "head"], "module 7"),
     (["--no-engine", "--kv-bits", "4"], "module 7"),
     (["--no-engine", "--temperature", "0.7"], "module 9"),
     (["--no-engine", "--snapshot-dir", "x"], "module 10"),
     (["--no-engine", "--mesh", "2x2"], "module 14"),
     (["--no-engine", "--serve-layout", "uint8", "--device", "cuda"],
      "section 2, kernel row 11"),
-    (["--kv-bits", "4"], "module 7"),
+    (["--ckpt-dir", "x"], "module 13"),
     (["--temperature", "0.7"], "module 9"),
     (["--snapshot-dir", "x"], "module 10"),
 ])
@@ -324,6 +329,45 @@ def test_launcher_engine_mode_serves_artifact_like_reference(
     for r, n in enumerate(gens):
         np.testing.assert_array_equal(res["outputs"][r],
                                       np.asarray(ref_toks)[r, :n])
+
+
+def test_launcher_engine_mode_serves_quantized_kv_like_reference(
+        reduced_qwen_artifact):
+    """``--kv-bits 4`` (and ``--kv-cb head``) in engine mode on the CPU:
+    codebook-quantized pages, every request finished, the streams equal
+    across slot counts and equal to the reference engine's at the same
+    knobs."""
+    d, rpm, rcfg = reduced_qwen_artifact
+    base = ["--packed", d, "--reduced", "--device", "cpu", "--requests", "3",
+            "--prompt-len", "9", "--gen-len", "4", "--page-size", "4",
+            "--kv-bits", "4"]
+    dispatch.reset_launch_counts()
+    runs = [serve.main(base + extra) for extra in
+            (["--slots", "2"], ["--slots", "3"],
+             ["--slots", "2", "--kv-cb", "head"])]
+    assert dispatch.launch_counts() == {n: 0 for n in dispatch.KERNELS}
+    for res, mode in zip(runs, ("page", "page", "head")):
+        eng = res["engine"]
+        assert (eng.kv_bits, eng.cfg.kv_bits, eng.cfg.kv_cb_mode) == \
+            (4, 4, mode)
+        cache = eng.caches[0]["pos0"]
+        assert cache.k_words.dtype == torch.int32
+        assert cache.k_cb.shape[-2:] == \
+            ((rcfg.n_kv if mode == "head" else 1), 16)
+        assert sorted(res["outputs"]) == [0, 1, 2]
+    for rid in range(3):
+        np.testing.assert_array_equal(runs[0]["outputs"][rid],
+                                      runs[1]["outputs"][rid])
+    for res, mode in ((runs[0], "page"), (runs[2], "head")):
+        ref_eng = RefEngine(rpm.serving_params(packed=True), rcfg, n_slots=2,
+                            page_size=4, max_seq=13, kv_bits=4,
+                            kv_cb_mode=mode)
+        want = ref_eng.run([RefRequest(rid=r.rid, prompt=r.prompt,
+                                       max_new_tokens=r.max_new_tokens)
+                            for r in res["requests"]])
+        for rid in range(3):
+            np.testing.assert_array_equal(res["outputs"][rid],
+                                          np.asarray(want[rid]))
 
 
 def test_launcher_refuses_to_run_without_a_card():
