@@ -7,29 +7,33 @@
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, in parallel), printing ``-Xptxas -v`` for each.
 2. Per kernel: holds it against its plain PyTorch version on the card at
-   small ragged shapes and at the serving path's shapes (the packed
-   kernels for K in {2, 4, 16, 256}; the page gather and the paged decode
-   attention for several head groupings, head dims, page sizes, softcaps,
-   positions and dead slots; the two quantized-KV attention kernels for
-   kv bits {2, 4, 8} x codebook mode {page, head}, pools written by the
-   port's quantizing write path or random words with sorted codebooks),
-   and times it (CUDA events, and device time from the profiler) beside
-   the plain version, one PyTorch library call as a yardstick (none reads
-   packed KV words: the quantized kernels stand beside their dense
-   kernel at the same shape instead), and the least time the card could
-   take (the larger of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s f32).
+   small ragged shapes and at the serving paths' shapes (the packed and
+   uint8 codebook matmuls for K in {2, 4, 16, 256}; the page gather, the
+   paged decode attention and the blockwise prefill, MLA's hd 192 / vd
+   128 included, for several head groupings, head dims, page sizes,
+   softcaps, positions and dead slots; the MLA paged decode over dense
+   and over 2/4/8-bit latent pages; the two quantized-KV attention
+   kernels for kv bits {2, 4, 8} x codebook mode {page, head}; quantized
+   pools written by the port's quantizing write path or random words
+   with sorted codebooks), and times it (CUDA events, and device time
+   from the profiler) beside the plain version, one PyTorch library call
+   as a yardstick (none reads packed KV words: the quantized kernels
+   stand beside their dense kernel at the same shape instead), and the
+   least time the card could take (the larger of bytes / 3.35 TB/s and
+   FLOPs / 67 TFLOP/s f32).
 3. Builds a random K=16 ``qwen1.5-0.5b`` artifact on the card from a seed
    and saves it.  One-shot path at full width: serves it through
    ``repro_torch.launch.serve --packed DIR --no-engine --batch 4
    --prompt-len 128 --gen-len 16`` with the launch counters zeroed just
-   before, checks that every kernel of that path ran, and re-runs the same
-   steps with the plain versions (the CPU route) teacher-forced on the
-   served tokens, comparing the logits at every step; then profiles a
-   prefill and 4 decode steps.
+   before, checks that exactly the kernels of that path ran, and re-runs
+   the same steps with the plain versions (the CPU route) teacher-forced
+   on the served tokens, comparing the logits at every step; then
+   profiles a prefill and 4 decode steps.  The same with
+   ``--serve-layout uint8`` (the uint8 matmul kernel, held the same way).
 4. Engine path at full width: serves the same artifact through the
    launcher's default engine mode (``--requests 8 --slots 4 --prompt-len
    128 --gen-len 16 --vary-gen --page-size 16``) with the counters zeroed
-   just before, checks that all six kernels ran, then again on an
+   just before, checks its six kernels ran, then again on an
    oversubscribed pool (``--pages 25``) that must stall; every finished
    stream is teacher-forced through the plain route on the CPU and each
    engine token must be its argmax or a near tie.  Then profiles an
@@ -40,9 +44,18 @@
    head`` once, counters zeroed before each serve: the quantized kernels
    must run and the dense attention kernels must not.  Prints the page
    pools' bytes beside the dense ones, holds every stream against the
-   port's quantized path on the CPU teacher-forced (argmax or near tie),
+   port's quantized path on the CPU teacher-forced on the card's pages,
    and profiles a quantized prefill step and 4 decode steps.
-6. Prints one JSON line of per-kernel results, the card line, and last
+6. ``deepseek-v2-lite-16b`` (MLA + MoE) at full width, cut to 3 of its 27
+   layers (the dense layer and two MoE layers): a random K=16 artifact
+   built on the card, served one-shot (batch 4, prompt 128, 16 tokens),
+   through the engine on dense latent pages and on 4-bit latent pages
+   (the engine path's requests), each with the counters zeroed and its
+   kernels checked, its latent pools' bytes held against
+   ``mla_page_footprint``, its MoE routes recorded, and its logits or
+   tokens held against the CPU replay of the same steps on the card's
+   routes (and, on 4-bit pages, the card's page writes); then profiled.
+7. Prints one JSON line of per-kernel results, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before that line; so does a machine without a CUDA device.
 """
@@ -77,6 +90,10 @@ REL_TOL = 1e-4
 # tokens fed: 24 layers of f32 sums in different orders; relative to the
 # largest logit.
 LOGIT_REL_TOL = 1e-3
+# A MoE route that differs between the card and the CPU replay must be a
+# near tie: the CPU's probabilities at the first differing rank and the
+# next within this fraction of the row's largest probability.
+ROUTE_TIE_REL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -147,9 +164,13 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(_device_ms(e) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / iters if total > 0 else None
+    # per kernel: its mean time times its launches per call; a launch
+    # record the tracer drops then lowers no call's time (each kernel of
+    # ``fn`` runs a whole number of times, at least once, per call)
+    total = sum(_device_ms(e) / e.count * max(1, round(e.count / iters))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count)
+    return total if total > 0 else None
 
 
 def time_all(kernel, plain, library, plain_iters: int = 30,
@@ -345,10 +366,10 @@ def check_prefill(gen, dev, sh: Shapes) -> dict:
     print("blockwise_prefill:")
 
     def case(b, c, h, kv, hd, s, start, window=None, softcap=None,
-             tile=64):
+             tile=64, vd=None):
         q = torch.randn(b, c, h, hd, generator=gen, device=dev)
         k = torch.randn(b, s, kv, hd, generator=gen, device=dev)
-        v = torch.randn(b, s, kv, hd, generator=gen, device=dev)
+        v = torch.randn(b, s, kv, vd or hd, generator=gen, device=dev)
         q_pos = torch.arange(start, start + c, device=dev, dtype=torch.int32)
         k_pos = torch.arange(s, device=dev, dtype=torch.int32)
         pad = (-s) % tile
@@ -365,6 +386,10 @@ def check_prefill(gen, dev, sh: Shapes) -> dict:
         "GQA rep 2, ragged view": (2, 5, 4, 2, 8, 13, 8),
         "window 4 + softcap 5": (2, 7, 6, 3, 12, 20, 13, 4, 5.0),
         "rep 8, tile 16": (1, 9, 8, 1, 32, 40, 31, None, None, 16),
+        # the deepseek-v2-lite MLA prefill: 16 heads, keys of nope 128 +
+        # rope 64, values of 128, one slot's 9-page view
+        "MLA hd 192 / vd 128, block at 64": (1, 64, 16, 16, 192, 144, 64,
+                                             None, None, 64, 128),
     }
     for start in range(0, sh.prompt_len, sh.block):
         cases[f"serving block at {start}"] = (
@@ -802,6 +827,278 @@ def check_prefill_quant(gen, dev, sh: Shapes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Kernel rows 11 (uint8 codebook matmul), 8 and 9 (MLA paged decode)
+# ---------------------------------------------------------------------------
+
+def check_codebook_matmul(gen, dev, sh: Shapes) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.codebook_matmul import codebook_matmul
+    print("codebook_matmul (uint8 indices):")
+    shapes = [(3, 37, 70), (33, 100, 130)]          # one-byte index loads
+    m_decode, m_prefill = sh.batch, sh.batch * sh.block
+    kd, n = sh.proj[1]                              # w_in / w_gate
+    shapes += [(m, kd, n) for m in (m_decode, m_prefill)]
+    errs = {}
+    for k in KS:
+        for (m, kd_, n_) in shapes:
+            cb, idx = rand_operands(gen, k, kd_, n_, dev)
+            idx = idx.to(torch.uint8)
+            x = torch.randn(m, kd_, generator=gen, device=dev)
+            got = codebook_matmul(x, idx, cb)
+            torch.cuda.synchronize()
+            errs[(k, m, kd_, n_)] = compare(
+                f"K={k} M={m} Kd={kd_} N={n_}", got,
+                ref.codebook_matmul_ref(x, idx, cb))
+    timings = {}
+    for m in (m_decode, m_prefill):
+        cb, idx = rand_operands(gen, K_MAIN, kd, n, dev)
+        idx = idx.to(torch.uint8)
+        x = torch.randn(m, kd, generator=gen, device=dev)
+        nc = copies_for(idx.numel())
+        ix = [idx.clone() for _ in range(nc)]
+        wd = [cb[idx.long()] for _ in range(copies_for(kd * n * 4))]
+        it = iter(range(10 ** 9))
+        times = time_all(
+            lambda: codebook_matmul(x, ix[next(it) % nc], cb),
+            lambda: ref.codebook_matmul_ref(x, ix[next(it) % nc], cb),
+            lambda: torch.matmul(x, wd[next(it) % len(wd)]))
+        b_ms, b_by = bound(m * kd * 4 + idx.numel() + K_MAIN * 4
+                           + m * n * 4, 2 * m * kd * n)
+        timings[m] = dict(shape=f"M={m} Kd={kd} N={n} K={K_MAIN} uint8",
+                          max_abs_err=errs[(K_MAIN, m, kd, n)],
+                          bound_ms=b_ms, bound_by=b_by, **times)
+        print(f"  timing {timings[m]}")
+    return dict(name="codebook_matmul", **timings[m_decode],
+                prefill=timings[m_prefill])
+
+
+# The small odd MLA shape of rows 8 and 9: 3 heads, latent 40, rope 6,
+# pages of 5, 3 logical pages per slot.
+MLA_ODD = dict(h=3, lat=40, rd=6, page=5, npg=3)
+
+
+def mla_shape(sh: Shapes) -> dict:
+    """The MLA decode geometry of a config's serving shapes."""
+    return dict(h=sh.h, lat=sh.cfg.mla.kv_lora, rd=sh.cfg.mla.rope_dim,
+                page=sh.page, npg=sh.npg)
+
+
+def mla_operands(gen, dev, b, h, lat, rd, page, npg):
+    """q_eff [B,1,H,L], q_rope [B,1,H,R], latent pools [B·npg + 1, page, L
+    / R] of random values (rows past each slot's pos included) and a page
+    table over a random permutation of the usable pages."""
+    n_phys = b * npg + 1
+    q_eff = torch.randn(b, 1, h, lat, generator=gen, device=dev)
+    q_rope = torch.randn(b, 1, h, rd, generator=gen, device=dev)
+    c_pool = torch.randn(n_phys, page, lat, generator=gen, device=dev)
+    r_pool = torch.randn(n_phys, page, rd, generator=gen, device=dev)
+    perm = torch.randperm(n_phys - 1, generator=gen, device=dev)[:b * npg]
+    table = (perm + 1).reshape(b, npg).to(torch.int32)
+    return q_eff, q_rope, c_pool, r_pool, table
+
+
+def _mla_scale(sh: Shapes) -> float:
+    m = sh.cfg.mla
+    return (m.nope_dim + m.rope_dim) ** -0.5
+
+
+def _check_alive(label, got, want, alive) -> float:
+    """Dead slots exactly 0 (the Pallas rule); alive slots within REL_TOL
+    of the plain version (which follows the jnp spec on dead slots)."""
+    dead = got[~alive]
+    if not torch.equal(dead, torch.zeros_like(dead)):
+        raise SmokeFailure(f"{label}: dead slots not 0")
+    if not alive.any():
+        print(f"  {label}: every slot dead, output exactly 0 ok")
+        return 0.0
+    return compare(label, got[alive], want[alive])
+
+
+def _mla_cases(sh: Shapes):
+    """(label, geometry, pos, alive) of the row 8 / 9 checks: pos 0 / page-1
+    / page / cap-1 with one dead slot at the odd and the serving shape, the
+    serving decode positions, and an all-dead batch."""
+    out = []
+    for name, g in (("odd", MLA_ODD), ("serving", mla_shape(sh))):
+        cap = g["npg"] * g["page"]
+        out.append((f"{name} shape, pos 0 / page-1 / page / cap-1, one dead "
+                    f"slot", g, [0, g["page"] - 1, g["page"], cap - 1, 5],
+                    [True, True, True, True, False]))
+    pos_l = [sh.prompt_len + i * (sh.gen_len - 1) // 3
+             for i in range(sh.batch)]
+    out.append((f"serving shape, pos {pos_l}", mla_shape(sh), pos_l,
+                [True] * sh.batch))
+    out.append(("all dead", MLA_ODD, [3, 7, 14], [False] * 3))
+    return out, pos_l
+
+
+def check_mla_paged_attention(gen, dev, sh: Shapes) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mla_paged_attention import mla_paged_attention
+    print(f"mla_paged_attention (alive slots within rel {REL_TOL:g}, dead "
+          f"slots exactly 0):")
+    scale = _mla_scale(sh)
+    cases, pos_l = _mla_cases(sh)
+    err = None
+    for label, g, pos, alive in cases:
+        ops = mla_operands(gen, dev, len(pos), **g)
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        alive = torch.tensor(alive, device=dev)
+        got = mla_paged_attention(*ops, pos, alive, scale=scale)
+        torch.cuda.synchronize()
+        e = _check_alive(label, got, ref.mla_paged_attention_ref(
+            *ops, pos, alive, scale=scale), alive)
+        if label.startswith("serving shape, pos"):
+            err, keep = e, (ops, pos, alive)
+    # timing at the serving decode shape, pools cycled past L2
+    (q_eff, q_rope, c_pool, r_pool, table), pos, alive = keep
+    nc = copies_for((c_pool.numel() + r_pool.numel()) * 4)
+    pools = [(c_pool.clone(), r_pool.clone()) for _ in range(nc)]
+    b, _, h, lat = q_eff.shape
+    # the library call: SDPA over the gathered view, q = [q_eff | q_rope],
+    # k = [c | r] shared by every head, v = c
+    qt = torch.cat([q_eff, q_rope], -1).transpose(1, 2).contiguous()
+    views = []
+    for c_c, r_c in pools:
+        gc = ref.gather_pages_ref(c_c, table, alive)
+        gr = ref.gather_pages_ref(r_c, table, alive)
+        views.append((torch.cat([gc, gr], -1)[:, None].contiguous(),
+                      gc[:, None].contiguous()))
+    cap = table.shape[1] * c_pool.shape[1]
+    mask = (torch.arange(cap, device=dev)[None, :] <= pos[:, None])
+    mask = mask[:, None, None, :]
+    it = iter(range(10 ** 9))
+    times = time_all(
+        lambda: mla_paged_attention(q_eff, q_rope, *pools[next(it) % nc],
+                                    table, pos, alive, scale=scale),
+        lambda: ref.mla_paged_attention_ref(q_eff, q_rope,
+                                            *pools[next(it) % nc], table,
+                                            pos, alive, scale=scale),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, *views[next(it) % nc], attn_mask=mask, scale=scale,
+            enable_gqa=True))
+    rd = q_rope.shape[-1]
+    rows = sum(p + 1 for p in pos_l)              # visible latent rows
+    nbytes = (rows * (lat + rd) * 4 + (q_eff.numel() + q_rope.numel()) * 4
+              + b * h * lat * 4 + table.numel() * 4 + 2 * b * 4)
+    b_ms, b_by = bound(nbytes, 2 * h * rows * (2 * lat + rd))
+    return dict(name="mla_paged_attention",
+                shape=f"q_eff [{b},1,{h},{lat}] q_rope [{b},1,{h},{rd}] "
+                      f"pools [{c_pool.shape[0]},{c_pool.shape[1]},{lat}/"
+                      f"{rd}] npg={table.shape[1]} pos {pos_l}",
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, **times)
+
+
+def mla_quant_pools(gen, dev, n_pages: int, page: int, lat: int, rd: int,
+                    bits: int, written: bool):
+    """Latent word pools [n_pages + 1, page, Wc / Wr] and per-page
+    codebooks [n_pages + 1, 1, 2**bits]: written by the port's quantizing
+    write path from random latent rows, or random words with sorted random
+    codebooks."""
+    from repro_torch.models import attention as attn
+    cache = attn.init_quant_paged_mla_cache(n_pages, page, lat, rd, bits,
+                                            device=dev)
+    if written:
+        table = torch.arange(1, n_pages + 1, device=dev)[None]
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        for words, cbs, d in ((cache.c_words, cache.c_cb, lat),
+                              (cache.r_words, cache.r_cb, rd)):
+            rows = 2 * torch.randn(1, n_pages * page, 1, d, generator=gen,
+                                   device=dev)
+            attn._write_block_slot_quant(words.unsqueeze(-2), cbs, table, 0,
+                                         one, rows, page, bits, "page")
+        return cache
+    for words in (cache.c_words, cache.r_words):
+        words.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, words.shape,
+                                  generator=gen, device=dev,
+                                  dtype=torch.int64).to(torch.int32))
+    for cbs in (cache.c_cb, cache.r_cb):
+        cbs.copy_(torch.sort(torch.randn(cbs.shape, generator=gen,
+                                         device=dev), dim=-1)[0])
+    return cache
+
+
+def check_mla_paged_attention_quant(gen, dev, sh: Shapes) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mla_paged_attention import mla_paged_attention
+    from repro_torch.kernels.mla_paged_attention_quant import \
+        mla_paged_attention_quant
+    print(f"mla_paged_attention_quant (alive slots within rel {REL_TOL:g}, "
+          f"dead slots exactly 0):")
+    scale = _mla_scale(sh)
+    cases, pos_l = _mla_cases(sh)
+    err = None
+    for bits in QUANT_BITS:
+        for written in (True, False):
+            for label, g, pos, alive in cases:
+                b = len(pos)
+                q_eff, q_rope, _, _, table = mla_operands(gen, dev, b, **g)
+                cache = mla_quant_pools(gen, dev, b * g["npg"], g["page"],
+                                        g["lat"], g["rd"], bits, written)
+                kw = dict(bits=bits, kv_lora=g["lat"], rope_dim=g["rd"],
+                          scale=scale)
+                pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+                alive = torch.tensor(alive, device=dev)
+                got = mla_paged_attention_quant(q_eff, q_rope, *cache, table,
+                                                pos, alive, **kw)
+                torch.cuda.synchronize()
+                e = _check_alive(
+                    f"{bits}-bit {'written' if written else 'random'} "
+                    f"{label}", got, ref.mla_paged_attention_quant_ref(
+                        q_eff, q_rope, *cache, table, pos, alive, **kw),
+                    alive)
+                if label.startswith("serving shape, pos") and bits == 4 \
+                        and written:
+                    err, keep = e, (q_eff, q_rope, cache, table, pos, alive)
+    # timing at the serving decode shape (4-bit, pools written by the write
+    # path), word pools cycled past L2; beside it row 8 on the dequantized
+    # pools at the same shape
+    q_eff, q_rope, cache, table, pos, alive = keep
+    bits = 4
+    g = mla_shape(sh)
+    kw = dict(bits=bits, kv_lora=g["lat"], rope_dim=g["rd"], scale=scale)
+    nc = copies_for((cache.c_words.numel() + cache.r_words.numel()) * 4)
+    pools = [tuple(t.clone() for t in cache) for _ in range(nc)]
+    n_phys = cache.c_words.shape[0]
+    every = torch.arange(n_phys, device=dev)[None]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    dense = [ref.dequant_pages_ref(w, c, every, one, d, bits).reshape(
+        n_phys, g["page"], d) for w, c, d in
+        ((cache.c_words, cache.c_cb, g["lat"]),
+         (cache.r_words, cache.r_cb, g["rd"]))]
+    nd = copies_for((dense[0].numel() + dense[1].numel()) * 4)
+    dense_pools = [(dense[0].clone(), dense[1].clone()) for _ in range(nd)]
+    it = iter(range(10 ** 9))
+    times = time_all(
+        lambda: mla_paged_attention_quant(q_eff, q_rope,
+                                          *pools[next(it) % nc], table, pos,
+                                          alive, **kw),
+        lambda: ref.mla_paged_attention_quant_ref(
+            q_eff, q_rope, *pools[next(it) % nc], table, pos, alive, **kw),
+        None,
+        dense=lambda: mla_paged_attention(q_eff, q_rope,
+                                          *dense_pools[next(it) % nd], table,
+                                          pos, alive, scale=scale))
+    b, _, h, lat = q_eff.shape
+    rd = g["rd"]
+    rows = sum(p + 1 for p in pos_l)
+    wc, wr = cache.c_words.shape[-1], cache.r_words.shape[-1]
+    pages = sum(p // g["page"] + 1 for p in pos_l)     # codebooks read
+    k_ent = cache.c_cb.shape[-1]
+    nbytes = (rows * (wc + wr) * 4 + 2 * pages * k_ent * 4
+              + (q_eff.numel() + q_rope.numel()) * 4 + b * h * lat * 4
+              + table.numel() * 4 + 2 * b * 4)
+    b_ms, b_by = bound(nbytes, 2 * h * rows * (2 * lat + rd))
+    return dict(name="mla_paged_attention_quant",
+                shape=f"q_eff [{b},1,{h},{lat}] words [{n_phys},"
+                      f"{g['page']},{wc}/{wr}] cb [{n_phys},1,{k_ent}] "
+                      f"npg={table.shape[1]} pos {pos_l} ({bits}-bit)",
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, **times)
+
+
+# ---------------------------------------------------------------------------
 # Main-path phase
 # ---------------------------------------------------------------------------
 
@@ -821,10 +1118,11 @@ def build_artifact(cfg, k: int, seed: int, directory: str, dev):
     """Random K-entry artifact of ``cfg``, built on the card: per eligible
     leaf (per layer group for stacked leaves) the codebook is the K
     quantiles of a fixed random subsample and the assignment is a
-    bucketize against the codebook midpoints.  Smoke scaffolding, not the
-    LC algorithm (``CompressionPlan`` is ROADMAP.md module 13)."""
+    bucketize against the codebook midpoints, packed on the card.  Smoke
+    scaffolding, not the LC algorithm (``CompressionPlan`` is ROADMAP.md
+    module 13)."""
     from repro_torch.core.compression import (DEFAULT_EXCLUDE, PackedLeaf,
-                                              PackedModel, pack_indices)
+                                              PackedModel, pack_lanes_torch)
     from repro_torch.models.transformer import init_params
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, gen, device=dev)
@@ -843,8 +1141,8 @@ def build_artifact(cfg, k: int, seed: int, directory: str, dev):
                                      generator=gen, device=dev)]
             cb = torch.quantile(sub, levels)
             idx = torch.bucketize(flat, (cb[1:] + cb[:-1]) / 2)
-            words.append(pack_indices(idx.to(torch.uint8).cpu().numpy(),
-                                      k)[0])
+            words.append(pack_lanes_torch(idx, k, 0).view(
+                torch.int32).cpu().numpy().view(np.uint32))
             cbs.append(cb.cpu().numpy())
         entries += k * len(cbs)
         packed[path] = PackedLeaf(
@@ -857,14 +1155,15 @@ def build_artifact(cfg, k: int, seed: int, directory: str, dev):
     return pm
 
 
-def plain_teacher_forced(directory: str, cfg, prompts: np.ndarray,
+def plain_teacher_forced(params_cpu, cfg, prompts: np.ndarray,
                          tokens: np.ndarray) -> torch.Tensor:
     """The same serve steps through the plain versions (the CPU route of
-    every kernel), feeding the served tokens: per-step logits [B, G, V]."""
-    from repro_torch.core.compression import PackedModel
+    every kernel) on the artifact's decoded params (the dense layout, whose
+    plain route equals the quantized layouts' bit for bit), feeding the
+    served tokens: per-step logits [B, G, V]."""
     from repro_torch.engine.oneshot import grow_caches
     from repro_torch.models.transformer import decode_step, prefill
-    params = PackedModel.load(directory).serving_params(packed=True)
+    params = params_cpu
     p = torch.from_numpy(prompts)
     gen_len = tokens.shape[1]
     logits, caches = prefill(params, cfg, p, last_logits_only=True)
@@ -977,28 +1276,136 @@ QUANT_PATH_KERNELS = ("quantized_gather", "codebook_matmul_packed",
 
 
 def check_launched(path: str, counts: dict, names) -> None:
+    """Every kernel of ``names`` launched during the path, and no other."""
     print(f"launches during the {path}: {counts}")
     missing = [n for n in names if counts[n] == 0]
     if missing:
         raise SmokeFailure(f"kernels never launched on the {path}: "
                            f"{missing}")
+    extra = {n: c for n, c in counts.items() if c and n not in names}
+    if extra:
+        raise SmokeFailure(f"the {path} launched kernels outside its path: "
+                           f"{extra}")
 
 
-def main_path(card: str, sh: Shapes, dev, directory: str,
-              arch_args=()) -> dict:
-    """The one-shot path (``--no-engine``) at full width (``arch_args``,
-    e.g. ``("--reduced",)``, serve another size of the config)."""
+class RouteTape:
+    """The MoE routes of a serve, call by call: every call of
+    ``moe.route`` (one layer's top-k expert ids), kept on the device while
+    recording.  A replay on the CPU takes the card's expert ids (routing
+    is discontinuous: an ulp in a router logit can swap the k-th and
+    (k+1)-th expert of a token), computes its own gates for them, and
+    reports every token of a live row whose own top-k differs, with the
+    gap of the CPU's probabilities at the first differing rank relative to
+    the row's largest; a gap not below ROUTE_TIE_REL fails.  ``live`` ([B]
+    bool, or None for every row) is set by the caller before each step:
+    dead engine slots read other attention values on the two devices."""
+
+    def __init__(self):
+        self.calls = []
+        self.live = None
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.models import moe
+        route = moe.route
+
+        def record(x, router_w, k):
+            gates, eidx = route(x, router_w, k)
+            self.calls.append(eidx.clone())
+            return gates, eidx
+
+        moe.route = record
+        try:
+            yield self
+        finally:
+            moe.route = route
+
+    @contextlib.contextmanager
+    def replaying(self, report: dict):
+        from repro_torch.models import moe
+        route = moe.route
+        calls = iter(self.calls)
+
+        def replay(x, router_w, k):
+            if report["calls"] == len(self.calls):
+                raise SmokeFailure(f"the CPU replay routes more than the "
+                                   f"card's {len(self.calls)} calls")
+            card = next(calls).to(x.device)
+            report["calls"] += 1
+            probs = moe.router_probs(x, router_w)
+            srt, own = moe.top_k(probs, k + 1)
+            if card.shape != own[..., :k].shape:
+                raise SmokeFailure(f"route call {report['calls'] - 1}: "
+                                   f"{tuple(card.shape)} on the card, "
+                                   f"{tuple(own[..., :k].shape)} on the CPU")
+            diff = own[..., :k] != card
+            flip = diff.any(-1)
+            if self.live is not None:
+                flip &= self.live.to(flip.device)[:, None]
+            for b, t in flip.nonzero().tolist():
+                j = int(diff[b, t].nonzero()[0])
+                gap = float(srt[b, t, j] - srt[b, t, j + 1]) / float(
+                    srt[b, t, 0])
+                report["flips"].append((j + 1, gap))
+                if gap >= ROUTE_TIE_REL:
+                    raise SmokeFailure(
+                        f"route call {report['calls'] - 1}: row {b} token "
+                        f"{t} routes to {card[b, t].tolist()} on the card, "
+                        f"{own[b, t, :k].tolist()} on the CPU, whose "
+                        f"probabilities at rank {j + 1}/{j + 2} differ by "
+                        f"{gap:.2e} of the largest")
+            report["tokens"] += int(card.shape[0] * card.shape[1])
+            top = probs.gather(-1, card)
+            return top / torch.clamp(top.sum(-1, keepdim=True), min=1e-9), card
+
+        moe.route = replay
+        try:
+            yield
+        finally:
+            moe.route = route
+        if report["calls"] != len(self.calls):
+            raise SmokeFailure(f"the CPU replay routed {report['calls']} "
+                               f"calls, the card {len(self.calls)}")
+
+
+def route_report() -> dict:
+    return dict(calls=0, tokens=0, flips=[])
+
+
+def print_routes(label: str, report: dict) -> None:
+    flips = report["flips"]
+    worst = max((g for _, g in flips), default=0.0)
+    ranks = sorted({j for j, _ in flips})
+    print(f"  {label}: {report['calls']} route calls on the card's expert "
+          f"ids ({report['tokens']} token rows); {len(flips)} tokens whose "
+          f"CPU top-k differs (at ranks {ranks}), largest probability gap "
+          f"{worst:.2e} of the row's largest (a gap of {ROUTE_TIE_REL:g} or "
+          f"more fails)")
+
+
+def main_path(card: str, sh: Shapes, dev, directory: str, params_cpu,
+              layout: str = "packed", kernels=None, routes=None,
+              reuse=None, profile: bool = True) -> dict:
+    """The one-shot path (``--no-engine``) of ``sh.cfg`` through the
+    launcher, in the ``layout`` serving layout, its logits held at every
+    step against the plain route teacher-forced on the served tokens.
+    ``routes`` (a RouteTape) records the serve's MoE routes and replays
+    them on the CPU; ``reuse`` is an earlier one-shot result on the same
+    prompts whose plain logits serve when the tokens are the same."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     cfg, batch = sh.cfg, sh.batch
     prompt_len, gen_len = sh.prompt_len, sh.gen_len
     argv = ["--packed", directory, "--no-engine", "--batch", str(batch),
             "--prompt-len", str(prompt_len), "--gen-len", str(gen_len),
-            "--device", str(dev), *arch_args]
+            "--serve-layout", layout, "--device", str(dev)]
+    label = f"one-shot serve ({layout} layout, {cfg.name})"
+    ctx = routes.recording() if routes else contextlib.nullcontext()
     dispatch.reset_launch_counts()
-    res = serve.main(argv)
+    with ctx:
+        res = serve.main(argv, cfg=cfg)
     counts = dispatch.launch_counts()
-    check_launched("one-shot serve", counts, ONESHOT_KERNELS)
+    check_launched(label, counts, kernels or ONESHOT_KERNELS)
     tokens, logits = res["tokens"], res["logits"].cpu()
     if tokens.shape != (batch, gen_len) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab:
@@ -1007,21 +1414,35 @@ def main_path(card: str, sh: Shapes, dev, directory: str,
             or not torch.isfinite(logits).all():
         raise SmokeFailure("served logits have the wrong shape or are "
                            "not finite")
-    print(f"served on {card}: prefill {res['prefill_ms']:.3f} ms, "
+    print(f"served on {card} ({label}): prefill {res['prefill_ms']:.3f} ms, "
           f"decode {res['decode_ms_per_step']:.3f} ms/step, "
           f"{res['decode_tokens_per_s']:.1f} decode tokens/s, "
           f"{res['tokens_per_s']:.1f} tokens/s end to end")
-    t1 = time.perf_counter()
-    plain = plain_teacher_forced(directory, cfg, res["prompts"], tokens)
-    print(f"plain teacher-forced run (CPU route) took "
-          f"{time.perf_counter() - t1:.1f} s")
-    profile_serve(directory, sh, dev, card)
-    compare("serving logits, every step", logits, plain,
+    if reuse is not None and np.array_equal(reuse["tokens"], tokens) \
+            and np.array_equal(reuse["prompts"], res["prompts"]):
+        plain = reuse["plain"]
+        print("  the same tokens as the packed serve: its plain replay "
+              "holds here too (the layouts' plain routes are bitwise equal)")
+    else:
+        t1 = time.perf_counter()
+        report = route_report()
+        ctx = routes.replaying(report) if routes else \
+            contextlib.nullcontext()
+        with ctx:
+            plain = plain_teacher_forced(params_cpu, cfg, res["prompts"],
+                                         tokens)
+        if routes:
+            print_routes(label, report)
+        print(f"plain teacher-forced run (CPU route) took "
+              f"{time.perf_counter() - t1:.1f} s")
+    if profile:
+        profile_serve(directory, sh, dev, card)
+    compare(f"{label}: serving logits, every step", logits, plain,
             rel_tol=LOGIT_REL_TOL)
     agree = (plain.argmax(-1).numpy() == tokens).mean()
     print(f"  greedy tokens agree with the plain route's argmax at "
           f"{agree:.3f} of steps")
-    return dict(res, counts=counts)
+    return dict(res, counts=counts, plain=plain)
 
 
 def hold_streams(label: str, params_cpu, cfg, prompts: np.ndarray,
@@ -1067,48 +1488,62 @@ def hold_streams(label: str, params_cpu, cfg, prompts: np.ndarray,
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def check_engine_serve(res, n_req: int, cfg, label: str):
+    """Every request finished with a stream of its length in the vocab, and
+    the EngineStats identity holds.  Returns the engine."""
+    bad = {r: v.outcome.value for r, v in res["results"].items()
+           if not v.ok}
+    if bad or sorted(res["outputs"]) != list(range(n_req)):
+        raise SmokeFailure(f"{label}: requests not all finished: {bad}")
+    for rid, toks in res["outputs"].items():
+        want = res["requests"][rid].max_new_tokens
+        if len(toks) != want or toks.min() < 0 or toks.max() >= cfg.vocab:
+            raise SmokeFailure(f"{label}: request {rid}: bad stream {toks}")
+    st = res["engine"].stats
+    if st.generated_tokens != st.decode_tokens + st.prefill_samples:
+        raise SmokeFailure(f"{label}: EngineStats identity broken")
+    return res["engine"]
+
+
+def print_engine(card: str, label: str, res) -> None:
+    eng, s = res["engine"], res["stats"]
+    st = eng.stats
+    print(f"{label} on {card} ({eng.pool.n_pages} pages): prefill "
+          f"{s['prefill_ms_per_block']:.3f} ms/block (median of "
+          f"{len(st.prefill_block_s)}), decode {s['decode_ms_per_step']:.3f} "
+          f"ms/step (median of {len(st.decode_step_s)}), "
+          f"{s['tokens_per_s']:.1f} tokens/s, slot occupancy "
+          f"{s['slot_occupancy']:.3f}, page utilisation "
+          f"{s['page_utilization']:.3f} (peak "
+          f"{s['page_utilization_max']:.3f}), {s['stall_events']} stalls, "
+          f"{s['preemptions']} preemptions, {s['steps']} steps, "
+          f"{s['wall_s']:.3f} s")
+
+
+def engine_argv(sh: Shapes, dev, directory: str):
+    """The launcher's engine-mode arguments of the engine paths."""
+    return ["--packed", directory, "--requests", str(2 * sh.batch),
+            "--slots", str(sh.batch), "--prompt-len", str(sh.prompt_len),
+            "--gen-len", str(sh.gen_len), "--vary-gen", "--page-size",
+            str(sh.page), "--device", str(dev)]
+
+
 def engine_path(card: str, sh: Shapes, dev, directory: str,
-                arch_args=()) -> dict:
+                params_cpu) -> dict:
     """The engine path (the launcher's default mode) at full width: a
     pool with room for every slot, then an oversubscribed one."""
-    from repro_torch.core.compression import PackedModel
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     cfg = sh.cfg
     n_req = 2 * sh.batch
-    base = ["--packed", directory, "--requests", str(n_req), "--slots",
-            str(sh.batch), "--prompt-len", str(sh.prompt_len), "--gen-len",
-            str(sh.gen_len), "--vary-gen", "--page-size", str(sh.page),
-            "--device", str(dev), *arch_args]
-    params_cpu = PackedModel.load(directory).decode()
+    base = engine_argv(sh, dev, directory)
     done: dict = {}
 
     def serve_once(extra):
-        res = serve.main(base + extra)
-        bad = {r: v.outcome.value for r, v in res["results"].items()
-               if not v.ok}
-        if bad or sorted(res["outputs"]) != list(range(n_req)):
-            raise SmokeFailure(f"engine requests not all finished: {bad}")
-        for rid, toks in res["outputs"].items():
-            want = res["requests"][rid].max_new_tokens
-            if len(toks) != want or toks.min() < 0 or toks.max() >= cfg.vocab:
-                raise SmokeFailure(f"engine request {rid}: bad stream {toks}")
-        eng = res["engine"]
-        st = eng.stats
-        if st.generated_tokens != st.decode_tokens + st.prefill_samples:
-            raise SmokeFailure("EngineStats identity broken")
-        s = res["stats"]
-        print(f"engine on {card} ({' '.join(extra) or 'default pool'}, "
-              f"{eng.pool.n_pages} pages): prefill "
-              f"{s['prefill_ms_per_block']:.3f} ms/block (median of "
-              f"{len(st.prefill_block_s)}), decode "
-              f"{s['decode_ms_per_step']:.3f} ms/step (median of "
-              f"{len(st.decode_step_s)}), {s['tokens_per_s']:.1f} tokens/s, "
-              f"slot occupancy {s['slot_occupancy']:.3f}, page utilisation "
-              f"{s['page_utilization']:.3f} (peak "
-              f"{s['page_utilization_max']:.3f}), {s['stall_events']} stalls, "
-              f"{s['preemptions']} preemptions, {s['steps']} steps, "
-              f"{s['wall_s']:.3f} s")
+        res = serve.main(base + extra, cfg=cfg)
+        check_engine_serve(res, n_req, cfg, "engine serve")
+        print_engine(card, f"engine ({' '.join(extra) or 'default pool'})",
+                     res)
         return res
 
     dispatch.reset_launch_counts()
@@ -1256,12 +1691,13 @@ def replaying(tape: WriteTape, what: str, report: dict):
                            f"calls, the card {len(tape.calls)}")
 
 
-def replay_engine_cpu(params_cpu, res) -> dict:
-    """The serve's engine again on the CPU (the port's quantized path, the
-    plain versions of its kernels), teacher-forced: the same requests and
-    knobs, so it takes the same scheduling decisions, with every sampled
-    token replaced by the card's.  Returns rid → logits rows [n, V], row t
-    the logits the card's token t was sampled from."""
+def replay_engine_cpu(params_cpu, res, routes=None) -> dict:
+    """The serve's engine again on the CPU (the port's plain versions of
+    its kernels), teacher-forced: the same requests and knobs, so it takes
+    the same scheduling decisions, with every sampled token replaced by
+    the card's.  ``routes`` (a replaying RouteTape) learns which slots are
+    live at each step.  Returns rid → logits rows [n, V], row t the logits
+    the card's token t was sampled from."""
     from repro_torch.engine import Engine
     card = res["engine"]
     outputs = res["outputs"]
@@ -1280,6 +1716,8 @@ def replay_engine_cpu(params_cpu, res) -> dict:
         logits[i, pos] = out
 
     def decode_forced(p, cfg, caches, table, tokens, pos, alive, **kw):
+        if routes is not None:
+            routes.live = alive.bool()
         logits, caches = decode(p, cfg, caches, table, tokens, pos, alive,
                                 **kw)
         for i, s in enumerate(eng.sched.slots):
@@ -1288,6 +1726,8 @@ def replay_engine_cpu(params_cpu, res) -> dict:
         return logits, caches
 
     def chunk_forced(p, cfg, caches, table, tok, slot, start):
+        if routes is not None:
+            routes.live = None
         logits, caches = chunk(p, cfg, caches, table, tok, slot, start)
         s = eng.sched.slots[slot]
         if start + tok.shape[1] >= s.req.prompt_len:
@@ -1324,15 +1764,53 @@ def token_agreement(outputs: dict, rows: dict) -> dict:
     return dict(tokens=n_tok, ties=n_tie, beyond=beyond, worst=worst)
 
 
+def hold_engine(label: str, params_cpu, res, tape: WriteTape = None,
+                routes: RouteTape = None) -> None:
+    """Hold an engine serve's streams against the port's path on the CPU
+    (plain versions), teacher-forced through the same engine decisions
+    (``replay_engine_cpu``): every card token must be the CPU logits'
+    argmax or a near tie within LOGIT_REL_TOL.  With quantized pages the
+    CPU stores the pages the card wrote, call by call (``replaying(...,
+    "pages")``, which checks each write); with MoE layers it takes the
+    card's expert ids (``RouteTape.replaying``, which checks each one that
+    differs from the CPU's own is a near tie)."""
+    t0 = time.perf_counter()
+    report = dict(calls=0, groups=0, equal=0, fit_ratio=0.0, rows_rel=0.0)
+    rr = route_report()
+    with contextlib.ExitStack() as stack:
+        if tape is not None:
+            stack.enter_context(replaying(tape, "pages", report))
+        if routes is not None:
+            stack.enter_context(routes.replaying(rr))
+        rows = replay_engine_cpu(params_cpu, res, routes)
+    agree = token_agreement(res["outputs"], rows)
+    on = (" on the card's pages" if tape is not None else "")
+    print(f"  {label}: {agree['tokens']} card tokens held against the CPU "
+          f"path teacher-forced{on}: "
+          f"{agree['tokens'] - agree['ties'] - len(agree['beyond'])} its "
+          f"argmax, {agree['ties']} near ties within rel {LOGIT_REL_TOL:g} "
+          f"(largest gap {agree['worst']:.2e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if tape is not None:
+        print(f"  {label}: {report['calls']} page writes: CPU rows within "
+              f"rel {report['rows_rel']:.2e} of the card's, the card's words "
+              f"its rows' assignment exactly, its codebooks "
+              f"{report['equal']} of {report['groups']} bitwise equal to "
+              f"the CPU fit of the same rows, distortion ratio card/CPU at "
+              f"most {report['fit_ratio']:.6f}")
+    if routes is not None:
+        print_routes(label, rr)
+    if agree["beyond"]:
+        rid, t, tok, best, rel = agree["beyond"][0]
+        raise SmokeFailure(f"{label}: request {rid} token {t} = {tok} is "
+                           f"{rel:.2e} (relative) below the CPU path's "
+                           f"argmax {best}")
+
+
 def hold_quant_streams(label: str, params_cpu, res, tape: WriteTape) -> None:
     """Hold a quantized-KV serve's streams against the port's quantized
-    path on the CPU (plain versions), teacher-forced through the same
-    engine decisions (``replay_engine_cpu``).
-
-    The gate: the CPU stores the pages the card wrote, call by call
-    (``replaying(..., "pages")``, which checks each write), and every card
-    token must be the CPU logits' argmax or a near tie within
-    LOGIT_REL_TOL.
+    path on the CPU teacher-forced on the card's pages (:func:`hold_engine`,
+    the gate).
 
     Measured, not gated: the same replay with the CPU quantizing its own
     rows against the card's codebooks, and with the CPU fitting its own
@@ -1340,26 +1818,7 @@ def hold_quant_streams(label: str, params_cpu, res, tape: WriteTape) -> None:
     rounding: an index flips where a value sits at a midpoint, a fit moves
     when a point crosses one, and the difference grows layer by layer, so
     the logits part by more than the gate allows (PERF.md, PR 14)."""
-    t0 = time.perf_counter()
-    report = dict(calls=0, groups=0, equal=0, fit_ratio=0.0, rows_rel=0.0)
-    with replaying(tape, "pages", report):
-        rows = replay_engine_cpu(params_cpu, res)
-    agree = token_agreement(res["outputs"], rows)
-    print(f"  {label}: {agree['tokens']} card tokens held against the CPU "
-          f"quantized path teacher-forced on the card's pages: "
-          f"{agree['tokens'] - agree['ties'] - len(agree['beyond'])} its "
-          f"argmax, {agree['ties']} near ties within rel {LOGIT_REL_TOL:g} "
-          f"(largest gap {agree['worst']:.2e}); {report['calls']} page "
-          f"writes: CPU K/V rows within rel {report['rows_rel']:.2e} of the "
-          f"card's, the card's words its rows' assignment exactly, its "
-          f"codebooks {report['equal']} of {report['groups']} bitwise equal "
-          f"to the CPU fit of the same rows, distortion ratio card/CPU at "
-          f"most {report['fit_ratio']:.6f}; {time.perf_counter() - t0:.1f} s")
-    if agree["beyond"]:
-        rid, t, tok, best, rel = agree["beyond"][0]
-        raise SmokeFailure(f"{label}: request {rid} token {t} = {tok} is "
-                           f"{rel:.2e} (relative) below the CPU quantized "
-                           f"path's argmax {best}")
+    hold_engine(label, params_cpu, res, tape)
     for what in ("fits", "own"):
         ctx = (replaying(tape, "fits", dict(calls=0)) if what == "fits"
                else contextlib.nullcontext())
@@ -1412,70 +1871,42 @@ def profile_engine_quant(directory: str, sh: Shapes, dev, card: str,
 
 
 def quant_engine_path(card: str, sh: Shapes, dev, directory: str,
-                      arch_args=()) -> dict:
+                      params_cpu) -> dict:
     """The engine on codebook-quantized KV pages at full width: the engine
     path's requests with ``--kv-bits 4`` twice (the streams must be equal
     bit for bit: the codebook fit is deterministic on the card), then
     ``--kv-bits 8 --kv-cb head`` once; each stream held against the CPU
     quantized path."""
-    from repro_torch.core.compression import PackedModel
     from repro_torch.engine.kvcache import equal_hbm_slots, kv_page_footprint
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     cfg = sh.cfg
     n_req = 2 * sh.batch
-    base = ["--packed", directory, "--requests", str(n_req), "--slots",
-            str(sh.batch), "--prompt-len", str(sh.prompt_len), "--gen-len",
-            str(sh.gen_len), "--vary-gen", "--page-size", str(sh.page),
-            "--device", str(dev), *arch_args]
-    params_cpu = PackedModel.load(directory).decode()
+    base = engine_argv(sh, dev, directory)
     counts = None
     runs = []
     for n, extra in enumerate((["--kv-bits", "4"], ["--kv-bits", "4"],
                                ["--kv-bits", "8", "--kv-cb", "head"])):
         # the first serve is timed as it is; the others record their writes
+        label = f"quantized-KV engine serve ({' '.join(extra)})"
         tape = WriteTape()
         ctx = tape.recording() if n else contextlib.nullcontext()
         dispatch.reset_launch_counts()
         with ctx:
-            res = serve.main(base + extra)
+            res = serve.main(base + extra, cfg=cfg)
         c = dispatch.launch_counts()
-        check_launched(f"quantized-KV engine serve ({' '.join(extra)})", c,
-                       QUANT_PATH_KERNELS)
-        dense = {n: c[n] for n in ("blockwise_prefill", "paged_attention")
-                 if c[n]}
-        if dense:
-            raise SmokeFailure(f"the quantized-KV serve launched dense "
-                               f"attention kernels: {dense}")
+        check_launched(label, c, QUANT_PATH_KERNELS)
         counts = counts or c
-        bad = {r: v.outcome.value for r, v in res["results"].items()
-               if not v.ok}
-        if bad or sorted(res["outputs"]) != list(range(n_req)):
-            raise SmokeFailure(f"quantized-KV requests not all finished: "
-                               f"{bad}")
-        for rid, toks in res["outputs"].items():
-            want = res["requests"][rid].max_new_tokens
-            if len(toks) != want or toks.min() < 0 or toks.max() >= cfg.vocab:
-                raise SmokeFailure(f"quantized-KV request {rid}: bad stream "
-                                   f"{toks}")
-        eng, s = res["engine"], res["stats"]
-        st = eng.stats
-        if st.generated_tokens != st.decode_tokens + st.prefill_samples:
-            raise SmokeFailure("EngineStats identity broken")
+        eng = check_engine_serve(res, n_req, cfg, label)
+        print_engine(card, label, res)
         dense_bytes = (2 * cfg.n_layers * (eng.pool.n_pages + 1) * sh.page
                        * cfg.n_kv * cfg.head_dim * 4)
         geo = (sh.page, cfg.n_kv, cfg.head_dim)
         knobs = (eng.kv_bits, eng.kv_cb_mode)
-        print(f"quantized-KV engine on {card} ({' '.join(extra)}, "
-              f"{eng.pool.n_pages} pages): prefill "
-              f"{s['prefill_ms_per_block']:.3f} ms/block (median of "
-              f"{len(st.prefill_block_s)}), decode "
-              f"{s['decode_ms_per_step']:.3f} ms/step (median of "
-              f"{len(st.decode_step_s)}), {s['tokens_per_s']:.1f} tokens/s, "
-              f"{s['steps']} steps, {s['wall_s']:.3f} s; page pools "
-              f"{pool_bytes(eng)} B from the tensors vs {dense_bytes} B "
-              f"dense; kv_page_footprint {kv_page_footprint(*geo, *knobs)} "
-              f"B vs {kv_page_footprint(*geo)} B dense per page and tensor; "
+        print(f"  page pools {pool_bytes(eng)} B from the tensors vs "
+              f"{dense_bytes} B dense; kv_page_footprint "
+              f"{kv_page_footprint(*geo, *knobs)} B vs "
+              f"{kv_page_footprint(*geo)} B dense per page and tensor; "
               f"equal_hbm_slots {equal_hbm_slots(sh.batch, *geo, *knobs)} "
               f"for {sh.batch} dense slots")
         if n:
@@ -1491,6 +1922,106 @@ def quant_engine_path(card: str, sh: Shapes, dev, directory: str,
     return dict(runs[0], counts=counts, kv8=runs[2])
 
 
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b (MLA + MoE) at full width
+# ---------------------------------------------------------------------------
+
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_ONESHOT_KERNELS = ("quantized_gather", "codebook_matmul_packed",
+                      "blockwise_prefill")
+DS_DENSE_KERNELS = DS_ONESHOT_KERNELS + ("page_gather",
+                                         "mla_paged_attention")
+DS_QUANT_KERNELS = DS_ONESHOT_KERNELS + ("page_gather",
+                                         "mla_paged_attention_quant")
+UINT8_ONESHOT_KERNELS = ("codebook_matmul", "blockwise_prefill")
+
+
+def depth_cut(cfg):
+    """``cfg`` at full width with each stack cut to at most two groups
+    (``reduce_config``'s depth rule): for deepseek-v2-lite-16b the dense
+    layer and two of the 26 MoE layers, 3 of 27 layers."""
+    return dataclasses.replace(cfg, stacks=tuple(
+        dataclasses.replace(s, groups=min(s.groups, 2)) for s in cfg.stacks))
+
+
+def mla_engine_path(card: str, sh: Shapes, dev, directory: str, params_cpu,
+                    kv_bits: int = 0) -> dict:
+    """The engine on latent pages, dense or ``kv_bits``-bit codebook-
+    quantized, at full width: the engine path's requests, their routes
+    recorded (and their page writes, when quantized), the streams held
+    against the CPU replay on the card's routes (and pages), the page
+    pools' bytes against ``mla_page_footprint``."""
+    from repro_torch.engine.kvcache import (mla_equal_hbm_slots,
+                                            mla_page_footprint)
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    cfg = sh.cfg
+    m = cfg.mla
+    n_req = 2 * sh.batch
+    extra = ["--kv-bits", str(kv_bits)] if kv_bits else []
+    label = (f"{cfg.name} engine on "
+             f"{f'{kv_bits}-bit' if kv_bits else 'dense'} latent pages")
+    routes = RouteTape()
+    tape = WriteTape() if kv_bits else None
+    dispatch.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(routes.recording())
+        if tape is not None:
+            stack.enter_context(tape.recording())
+        res = serve.main(engine_argv(sh, dev, directory) + extra, cfg=cfg)
+    counts = dispatch.launch_counts()
+    check_launched(label, counts,
+                   DS_QUANT_KERNELS if kv_bits else DS_DENSE_KERNELS)
+    eng = check_engine_serve(res, n_req, cfg, label)
+    print_engine(card, label, res)
+    per_page = mla_page_footprint(sh.page, m.kv_lora, m.rope_dim, kv_bits)
+    dense_page = mla_page_footprint(sh.page, m.kv_lora, m.rope_dim)
+    pages = cfg.n_layers * (eng.pool.n_pages + 1)
+    got = pool_bytes(eng)
+    print(f"  latent page pools {got} B from the tensors ({pages} pages x "
+          f"mla_page_footprint {per_page} B; dense {dense_page} B per "
+          f"page)" + (f"; mla_equal_hbm_slots "
+                      f"{mla_equal_hbm_slots(sh.batch, sh.page, m.kv_lora, m.rope_dim, kv_bits)}"
+                      f" for {sh.batch} dense slots" if kv_bits else ""))
+    if got != pages * per_page:
+        raise SmokeFailure(f"{label}: page pools hold {got} B, "
+                           f"mla_page_footprint says {pages * per_page} B")
+    hold_engine(label, params_cpu, res, tape, routes)
+    if kv_bits:
+        profile_engine_quant(directory, sh, dev, card, kv_bits)
+    else:
+        profile_engine(directory, sh, dev, card)
+    return dict(res, counts=counts)
+
+
+def deepseek_paths(card: str, dev, directory: str, sh: Shapes) -> dict:
+    """deepseek-v2-lite-16b at full width, cut in depth (``sh.cfg``): a
+    random K=16 artifact built on the card, served one-shot, through the
+    engine on dense latent pages and on 4-bit latent pages, each held
+    against the CPU replay of the same steps on the card's MoE routes."""
+    from repro_torch.convert import tree_map
+    t0 = time.perf_counter()
+    pm = build_artifact(sh.cfg, K_MAIN, seed=0, directory=directory,
+                        dev=dev)
+    s = pm.summary()
+    print(f"{sh.cfg.name} artifact ({sh.cfg.n_layers} layers: "
+          f"{[len(st.pattern) * st.groups for st in sh.cfg.stacks]}): "
+          f"{len(pm.packed)} packed leaves, {s['packed_bytes'] / 1e6:.1f} MB "
+          f"packed vs {s['ref_bytes'] / 1e6:.1f} MB f32, built and saved in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params_cpu = tree_map(lambda t: t.cpu(), pm.decode(device=dev))
+    del pm
+    torch.cuda.empty_cache()
+    print(f"  decoded for the CPU replays in {time.perf_counter() - t0:.1f} "
+          f"s")
+    oneshot = main_path(card, sh, dev, directory, params_cpu,
+                        kernels=DS_ONESHOT_KERNELS, routes=RouteTape())
+    dense = mla_engine_path(card, sh, dev, directory, params_cpu)
+    quant = mla_engine_path(card, sh, dev, directory, params_cpu, kv_bits=4)
+    return dict(oneshot=oneshot, dense=dense, quant=quant)
+
+
 REPLACES = {
     "quantized_gather": "src/repro/kernels/quantized_gather.py:42",
     "codebook_matmul_packed": "src/repro/kernels/codebook_matmul_packed.py:57",
@@ -1501,7 +2032,18 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:173",
     "blockwise_prefill_quant": "src/repro/kernels/blockwise_prefill.py:176",
     "paged_attention_quant": "src/repro/kernels/paged_attention.py:216",
+    "codebook_matmul": "src/repro/kernels/codebook_matmul.py:57",
+    "mla_paged_attention": "src/repro/kernels/paged_attention.py:353",
+    "mla_paged_attention_quant": "src/repro/kernels/paged_attention.py:401",
 }
+
+# The path whose run gives each kernel's "launches": the path of the slice
+# that ported it.
+MAIN_PATH_OF = {"blockwise_prefill_quant": "quant_engine",
+                "paged_attention_quant": "quant_engine",
+                "codebook_matmul": "uint8_oneshot",
+                "mla_paged_attention": "deepseek_engine",
+                "mla_paged_attention_quant": "deepseek_quant_engine"}
 
 
 def run() -> int:
@@ -1522,6 +2064,7 @@ def run() -> int:
         print(f"--- ptxas {lib} ---\n{log.strip()}")
 
     from repro_torch.configs import get_config
+    from repro_torch.core.compression import PackedModel
     from repro_torch.models.transformer import DEFAULT_PREFILL_BLOCK
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -1529,21 +2072,49 @@ def run() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sh = Shapes(get_config("qwen1.5-0.5b"), batch=4, prompt_len=128,
                 gen_len=16, block=DEFAULT_PREFILL_BLOCK)
+    full = get_config(DS_ARCH)
+    sh_ds = Shapes(depth_cut(full), batch=4, prompt_len=128, gen_len=16,
+                   block=DEFAULT_PREFILL_BLOCK)
+    print(f"{DS_ARCH}: full width (d_model {full.d_model}, {full.n_heads} "
+          f"heads, kv_lora {full.mla.kv_lora}, rope {full.mla.rope_dim}, "
+          f"{full.moe.n_experts} experts top-{full.moe.top_k}, vocab "
+          f"{full.vocab}), depth cut from {full.n_layers} to "
+          f"{sh_ds.cfg.n_layers} layers (the dense layer + 2 MoE layers: "
+          f"reduce_config's depth rule) to bound the CPU replay and the "
+          f"card's time")
     results = [check(gen, dev, sh) for check in
                (check_gather, check_matmul, check_matmul_t, check_prefill,
                 check_page_gather, check_paged_attention,
-                check_prefill_quant, check_paged_attention_quant)]
+                check_prefill_quant, check_paged_attention_quant,
+                check_codebook_matmul)]
+    results += [check(gen, dev, sh_ds) for check in
+                (check_mla_paged_attention, check_mla_paged_attention_quant)]
     with tempfile.TemporaryDirectory() as tmp:
+        qwen_dir, ds_dir = os.path.join(tmp, "qwen"), os.path.join(tmp, "ds")
         t0 = time.perf_counter()
-        pm = build_artifact(sh.cfg, K_MAIN, seed=0, directory=tmp, dev=dev)
+        pm = build_artifact(sh.cfg, K_MAIN, seed=0, directory=qwen_dir,
+                            dev=dev)
         s = pm.summary()
         print(f"artifact: {len(pm.packed)} packed leaves, "
               f"{s['packed_bytes'] / 1e6:.1f} MB packed vs "
               f"{s['ref_bytes'] / 1e6:.1f} MB f32, built and saved in "
               f"{time.perf_counter() - t0:.1f} s")
-        main = main_path(card, sh, dev, tmp)
-        engine = engine_path(card, sh, dev, tmp)
-        quant = quant_engine_path(card, sh, dev, tmp)
+        params_cpu = PackedModel.load(qwen_dir).decode()
+        paths = {}
+        paths["oneshot"] = main_path(card, sh, dev, qwen_dir, params_cpu)
+        paths["uint8_oneshot"] = main_path(
+            card, sh, dev, qwen_dir, params_cpu, layout="uint8",
+            kernels=UINT8_ONESHOT_KERNELS, reuse=paths["oneshot"],
+            profile=False)
+        paths["dense_engine"] = engine_path(card, sh, dev, qwen_dir,
+                                            params_cpu)
+        paths["quant_engine"] = quant_engine_path(card, sh, dev, qwen_dir,
+                                                  params_cpu)
+        del params_cpu
+        ds = deepseek_paths(card, dev, ds_dir, sh_ds)
+        paths["deepseek_oneshot"] = ds["oneshot"]
+        paths["deepseek_engine"] = ds["dense"]
+        paths["deepseek_quant_engine"] = ds["quant"]
 
     kernels = []
     def fmt(ms):
@@ -1566,15 +2137,14 @@ def run() -> int:
                   f"{fmt(t['device_plain_ms'])}, {dev_beside}); bound "
                   f"{t['bound_ms']:.4f} ms by {t['bound_by']}: "
                   f"{t['bound_ms'] / t['ms']:.1%} of the per-call time")
-        path = quant if r["name"] in QUANT_PATH_KERNELS[-2:] else engine
+        main = paths[MAIN_PATH_OF.get(r["name"], "dense_engine")]
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{r['name']}.cu",
             "replaces": REPLACES[r["name"]],
-            "launches": path["counts"][r["name"]],
-            "launches_oneshot": main["counts"][r["name"]],
-            "launches_dense_engine": engine["counts"][r["name"]],
-            "launches_quant_engine": quant["counts"][r["name"]],
+            "launches": main["counts"][r["name"]],
+            **{f"launches_{p}": res["counts"][r["name"]]
+               for p, res in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

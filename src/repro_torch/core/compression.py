@@ -7,8 +7,9 @@ ratio ρ(K) = #bits(reference) / #bits(quantized)
 
 Bit-packing stores ⌈log2 K⌉-bit assignment indices little-endian in
 uint32 words, ``32 // bits`` lanes per word, no index straddling two
-words.  The host packers are numpy (as in the reference); the unpacks
-are torch and run on any device.  PyTorch has no ``>>`` for
+words.  The host packers are numpy (as in the reference);
+:func:`pack_lanes_torch` packs the same layouts on any device, and the
+unpacks are torch and run on any device.  PyTorch has no ``>>`` for
 ``torch.uint32`` on the CPU, so every torch-side unpack views the words
 as int32, widens to int64, then shifts and masks (a lane never reaches
 past bit 31, so the sign of the widened word never leaks into a lane).
@@ -113,6 +114,27 @@ def pack_rows(idx: np.ndarray, k: int) -> np.ndarray:
     for lane in range(lanes):
         words |= idx[:, :, lane] << np.uint32(lane * bits)
     return words
+
+
+def pack_lanes_torch(idx: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    """Pack integer indices (< k) along ``axis`` into uint32 words, on
+    ``idx``'s device: axis 0 of a flat [n] tensor is :func:`pack_indices`'s
+    stream, axis 0 of [Kd, N] :func:`pack_indices_2d`, the last axis of
+    [V, D] :func:`pack_rows` — the same bits.  The lanes are OR-ed in int64
+    and the word is kept as its int32 bit pattern, viewed as uint32."""
+    bits = bits_per_index(k)
+    lanes = 32 // bits
+    w = idx.movedim(axis, -1).to(torch.int64)
+    pad = (-w.shape[-1]) % lanes
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    w = w.reshape(w.shape[:-1] + (-1, lanes))
+    word = w[..., 0]
+    for lane in range(1, lanes):
+        word = word | (w[..., lane] << (lane * bits))
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    return word.to(torch.int32).movedim(-1, axis).contiguous().view(
+        torch.uint32)
 
 
 def as_words(words: Union[np.ndarray, torch.Tensor],
@@ -290,9 +312,10 @@ class PackedLeaf:
     def size(self) -> int:
         return int(np.prod(self.shape))
 
-    def indices(self) -> torch.Tensor:
-        """Unpacked int64 assignment indices in the original leaf shape."""
-        words = as_words(self.words)
+    def indices(self, device=None) -> torch.Tensor:
+        """Unpacked int64 assignment indices in the original leaf shape,
+        unpacked on ``device``."""
+        words = as_words(self.words, device)
         if self.grouped:
             n = int(np.prod(self.shape[1:]))
             idx = torch.stack([unpack_indices(w, n, self.k) for w in words])
@@ -300,10 +323,11 @@ class PackedLeaf:
             idx = unpack_indices(words, self.size, self.k)
         return idx.reshape(self.shape)
 
-    def decode(self) -> torch.Tensor:
-        """Δ(Θ): codebook gather in the leaf's original dtype."""
-        idx = self.indices()
-        cb = torch.from_numpy(np.asarray(self.codebook))
+    def decode(self, device=None) -> torch.Tensor:
+        """Δ(Θ): codebook gather in the leaf's original dtype, on
+        ``device``."""
+        idx = self.indices(device)
+        cb = torch.from_numpy(np.asarray(self.codebook)).to(idx.device)
         if self.grouped:
             flat = idx.reshape(idx.shape[0], -1)
             dec = torch.gather(cb, 1, flat)
@@ -341,10 +365,10 @@ class PackedModel:
     # -- consumption --------------------------------------------------------
 
     def decode(self, device=None) -> PyTree:
-        """Full dense params tree (torch tensors)."""
+        """Full dense params tree (torch tensors), decoded on ``device``."""
         entries: Dict[Tuple[PathToken, ...], Any] = {}
         for ks, leaf in self.packed.items():
-            entries[path_tokens(ks)] = leaf.decode().to(device)
+            entries[path_tokens(ks)] = leaf.decode(device)
         for ks, arr in self.dense.items():
             entries[path_tokens(ks)] = torch.from_numpy(
                 np.array(arr)).to(device)
@@ -379,7 +403,8 @@ class PackedModel:
         [V, ⌈D/lanes⌉] for ``gather_names`` tables), ``<name>_cb`` f32 and
         ``<name>_layout``.  ``packed=False``: the uint8 oracle layout
         ``<name>_idx`` + ``<name>_cb`` in the leaf dtype.  Leaves outside
-        ``quant_names`` (when given) or not eligible decode dense.
+        ``quant_names`` (when given) or not eligible decode dense.  The
+        unpacking and repacking run on ``device``.
         """
         if gather_names is None:
             gather_names = self.GATHER_NAMES
@@ -390,26 +415,24 @@ class PackedModel:
             eligible, _ = self._serves_quantized(ks, leaf)
             if not (eligible
                     and (quant_names is None or name in quant_names)):
-                entries[tokens] = leaf.decode().to(device)
+                entries[tokens] = leaf.decode(device)
                 continue
             mshape = leaf.shape[1:] if leaf.grouped else leaf.shape
-            idx = leaf.indices()
+            idx = leaf.indices(device)
             if packed:
                 cb = torch.from_numpy(np.asarray(leaf.codebook, np.float32))
                 kd = int(np.prod(mshape[:-1]))
                 n = int(mshape[-1])
-                idx_np = idx.numpy()
                 row_packed = (name in gather_names and not leaf.grouped
                               and len(mshape) == 2)
                 if row_packed:
-                    words = pack_rows(idx_np.reshape(kd, n), leaf.k)
+                    words = pack_lanes_torch(idx.reshape(kd, n), leaf.k, 1)
                 elif leaf.grouped:
-                    words = np.stack([pack_indices_2d(g.reshape(kd, n),
-                                                      leaf.k) for g in idx_np])
+                    words = pack_lanes_torch(idx.reshape(-1, kd, n), leaf.k,
+                                             1)
                 else:
-                    words = pack_indices_2d(idx_np.reshape(kd, n), leaf.k)
-                entries[tokens[:-1] + (f"{name}_pidx",)] = as_words(
-                    words, device)
+                    words = pack_lanes_torch(idx.reshape(kd, n), leaf.k, 0)
+                entries[tokens[:-1] + (f"{name}_pidx",)] = words
                 entries[tokens[:-1] + (f"{name}_layout",)] = (
                     PackedLayout.make(kd, n, leaf.k,
                                       shape=mshape if len(mshape) != 2
@@ -419,8 +442,7 @@ class PackedModel:
             else:
                 cb = torch.from_numpy(np.asarray(leaf.codebook, np.float32)
                                       ).to(torch_dtype(leaf.dtype))
-                entries[tokens[:-1] + (f"{name}_idx",)] = (
-                    idx.to(torch.uint8).to(device))
+                entries[tokens[:-1] + (f"{name}_idx",)] = idx.to(torch.uint8)
             entries[tokens[:-1] + (f"{name}_cb",)] = cb.to(device)
         for ks, arr in self.dense.items():
             entries[path_tokens(ks)] = torch.from_numpy(

@@ -34,10 +34,11 @@ slot while batch mates keep decoding.  :meth:`run` never raises: going
 past ``max_steps`` fails the stragglers and returns every completed
 stream.
 
-With ``kv_bits`` ∈ {2, 4, 8} the pages hold codebook-quantized K/V
-(bit-packed indices and per-page codebooks, ``kv_cb_mode`` "page" or
-"head"): each page's codebook is fit when its first row is written and
-frozen after, so storage is a pure function of the written values.
+With ``kv_bits`` ∈ {2, 4, 8} the pages hold codebook-quantized K/V or
+MLA latent rows (bit-packed indices and per-page codebooks, ``kv_cb_mode``
+"page" or "head"; latent pages always one per page): each page's codebook
+is fit when its first row is written and frozen after, so storage is a
+pure function of the written values.
 
 Not ported here: the device mesh (ROADMAP.md module 14), sampling beyond
 greedy (module 9) and the chaos / snapshot hooks (module 10).  In PyTorch
@@ -503,8 +504,8 @@ class Engine:
         info["quarantined"] += 1
 
     def _scrub_pages(self, pages):
-        """Zero every pool of the given pages in every layer: dense K/V, or
-        the words and codebooks of quantized pages."""
+        """Zero every pool of the given pages in every layer: dense K/V or
+        latent rows, or the words and codebooks of quantized pages."""
         if not pages:
             return
         idx = torch.tensor(pages, device=self.device)

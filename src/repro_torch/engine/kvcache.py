@@ -11,8 +11,7 @@ point at it, so the decode step's shapes never depend on which slots are
 live.  Freeing a finished slot returns its pages to the free list
 immediately (LIFO, so a queued request reuses the hottest pages first).
 
-Not ported here: the latent-page footprint of MLA (ROADMAP.md module 8)
-and the allocator's snapshot state (ROADMAP.md module 10).
+Not ported here: the allocator's snapshot state (ROADMAP.md module 10).
 """
 from __future__ import annotations
 
@@ -42,6 +41,31 @@ def kv_page_footprint(page_size: int, n_kv: int, head_dim: int,
     word_bytes = page_size * n_kv * kvquant.words_per(head_dim,
                                                       kv_bits) * 4
     return word_bytes + n_cb * kvquant.kv_entries(kv_bits) * itemsize
+
+
+def mla_page_footprint(page_size: int, kv_lora: int, rope_dim: int,
+                       kv_bits: int = 0, itemsize: int = 4) -> int:
+    """Stored HBM bytes of ONE latent page (c_kv + k_rope tensors)."""
+    if not kv_bits:
+        return (kvquant.dense_page_bytes(page_size, kv_lora, itemsize)
+                + kvquant.dense_page_bytes(page_size, rope_dim, itemsize))
+    kvquant.check_kv_bits(kv_bits)
+    return (kvquant.quant_page_bytes(page_size, kv_lora, kv_bits, 1,
+                                     itemsize)
+            + kvquant.quant_page_bytes(page_size, rope_dim, kv_bits, 1,
+                                       itemsize))
+
+
+def mla_equal_hbm_slots(n_slots: int, page_size: int, kv_lora: int,
+                        rope_dim: int, kv_bits: int,
+                        itemsize: int = 4) -> int:
+    """:func:`equal_hbm_slots` for latent pages: how many slots fit in the
+    HBM of ``n_slots`` dense latent slots once the pages quantize to
+    ``kv_bits``."""
+    dense = mla_page_footprint(page_size, kv_lora, rope_dim, 0, itemsize)
+    quant = mla_page_footprint(page_size, kv_lora, rope_dim, kv_bits,
+                               itemsize)
+    return max(n_slots, n_slots * dense // quant)
 
 
 def equal_hbm_slots(n_slots: int, page_size: int, n_kv: int, head_dim: int,

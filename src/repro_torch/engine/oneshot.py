@@ -17,7 +17,8 @@ from repro_torch.models.transformer import ModelConfig, decode_step, prefill
 
 def grow_caches(caches, prompt_len: int, gen_len: int):
     """Pad prefill caches (capacity = prompt_len on axis 2 of the stacked
-    [G, B, S, ...] leaves) to prompt_len + gen_len for the decode loop."""
+    [G, B, S, ...] leaves: K/V [G, B, S, KV, hd] or MLA latents
+    [G, B, S, d]) to prompt_len + gen_len for the decode loop."""
     def grow(leaf):
         if leaf.ndim >= 3 and leaf.shape[2] == prompt_len:
             pad = [0, 0] * (leaf.ndim - 3) + [0, gen_len]

@@ -2,8 +2,10 @@
 ``repro/kernels/dispatch.py``).
 
 The route follows the tensor: an operand on a CUDA device launches the
-hand-written kernel (or raises where no kernel is ported yet), an operand
-on the CPU takes the kernel's plain PyTorch version.  There is no switch
+hand-written kernel, an operand on the CPU takes the kernel's plain
+PyTorch version.  Where the reference itself computes outside any kernel
+(a grouped or non-matrix quantized leaf: decode, then dot), so does the
+port, on every device.  There is no switch
 that sends a CUDA tensor to a plain version.  On the CPU the quantized
 matmul routes are literally the dense layout's graph (``x @ decode``), so
 dense / uint8 / packed serving agree bitwise there, as in the reference.
@@ -27,11 +29,16 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.blockwise_prefill import blockwise_prefill
 from repro_torch.kernels.blockwise_prefill_quant import \
     blockwise_prefill_quant
+from repro_torch.kernels.codebook_matmul import codebook_matmul
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
 # the page gather needs no routing of its own: the per-slot view of any
 # pool dtype, dead slots masked to the trash page
+from repro_torch.kernels.mla_paged_attention import \
+    mla_paged_attention as _mla_paged_attention
+from repro_torch.kernels.mla_paged_attention_quant import \
+    mla_paged_attention_quant as _mla_paged_attention_quant
 from repro_torch.kernels.page_gather import page_gather
 from repro_torch.kernels.paged_attention import paged_attention as \
     _paged_attention
@@ -51,6 +58,9 @@ KERNELS = {
     "paged_attention": _paged_attention,
     "blockwise_prefill_quant": blockwise_prefill_quant,
     "paged_attention_quant": _paged_attention_quant,
+    "codebook_matmul": codebook_matmul,
+    "mla_paged_attention": _mla_paged_attention,
+    "mla_paged_attention_quant": _mla_paged_attention_quant,
 }
 
 
@@ -61,11 +71,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} has no CUDA kernel yet: "
-                               f"ROADMAP.md {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +194,36 @@ def paged_attention_quant(q: torch.Tensor, k_words: torch.Tensor,
     return out.to(k_cb.dtype)
 
 
+def mla_paged_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                        c_pool: torch.Tensor, r_pool: torch.Tensor,
+                        page_table: torch.Tensor, pos: torch.Tensor,
+                        alive: torch.Tensor, *,
+                        scale: float) -> torch.Tensor:
+    """Absorbed-MLA paged decode over dense latent pages [P+1, page, L] /
+    [P+1, page, R] → latent context [B, 1, H, L] in the pool dtype."""
+    out = _mla_paged_attention(q_eff.contiguous(), q_rope.contiguous(),
+                               c_pool, r_pool, page_table, pos, alive,
+                               scale=scale)
+    return out.to(c_pool.dtype)
+
+
+def mla_paged_attention_quant(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                              c_words: torch.Tensor, r_words: torch.Tensor,
+                              c_cb: torch.Tensor, r_cb: torch.Tensor,
+                              page_table: torch.Tensor, pos: torch.Tensor,
+                              alive: torch.Tensor, *, bits: int,
+                              kv_lora: int, rope_dim: int,
+                              scale: float) -> torch.Tensor:
+    """Absorbed-MLA paged decode over codebook-quantized latent pages
+    (word pools [P+1, page, Wd], per-page codebooks [P+1, 1, K]) → latent
+    context [B, 1, H, L] in the codebook dtype."""
+    out = _mla_paged_attention_quant(
+        q_eff.contiguous(), q_rope.contiguous(), c_words, r_words, c_cb,
+        r_cb, page_table, pos, alive, bits=bits, kv_lora=kv_lora,
+        rope_dim=rope_dim, scale=scale)
+    return out.to(c_cb.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Codebook matmuls
 # ---------------------------------------------------------------------------
@@ -210,12 +245,16 @@ def packed_codebook_matmul(x: torch.Tensor, pidx: torch.Tensor,
 
 def quantized_matmul(x: torch.Tensor, idx: torch.Tensor,
                      codebook: torch.Tensor) -> torch.Tensor:
-    """x[..., Kd] · codebook[idx[Kd, N]] — the uint8 oracle layout; the
-    dense graph on the CPU."""
-    if x.is_cuda:
-        raise _not_ported("the uint8-index matmul (codebook_matmul_pallas)",
-                          "kernel row 11")
-    return (x @ decode_leaf(idx, codebook)).to(x.dtype)
+    """x[..., Kd] · codebook[idx[Kd, N]] — the uint8 oracle layout: the
+    uint8 kernel on the card for a matrix operand, the dense graph
+    (decode, then dot) on the CPU and for any other operand, as in the
+    reference."""
+    if not x.is_cuda or idx.ndim != 2:
+        return (x @ decode_leaf(idx, codebook)).to(x.dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
+    y = codebook_matmul(x2, idx, codebook)
+    return y.reshape(lead + (idx.shape[-1],)).to(x.dtype)
 
 
 def packed_quantized_matmul(x: torch.Tensor, pidx: torch.Tensor,
@@ -223,17 +262,16 @@ def packed_quantized_matmul(x: torch.Tensor, pidx: torch.Tensor,
                             layout: Optional[PackedLayout] = None
                             ) -> torch.Tensor:
     """Batched-x entry of ``qleaf.qmatmul`` for the ``<name>_pidx``
-    layout: the dense graph on the CPU, the packed kernel on the card."""
-    if not x.is_cuda:
+    layout: the packed kernel on the card for a matrix operand; the dense
+    graph (decode, then dot) on the CPU and, as in the reference, for a
+    grouped or non-matrix leaf on any device."""
+    nd = layout is not None and (layout.shape is not None
+                                 or layout.order != "kd")
+    if not x.is_cuda or pidx.ndim != 2 or nd:
         if layout is None:
             raise ValueError("packed_quantized_matmul needs the "
                              "PackedLayout on the dequant route")
         return (x @ decode_packed_leaf(pidx, codebook, layout)).to(x.dtype)
-    if pidx.ndim != 2 or (layout is not None
-                          and (layout.shape is not None
-                               or layout.order != "kd")):
-        raise _not_ported("a grouped / non-matrix packed matmul "
-                          "(MoE expert stacks)", "module 6")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
     y = packed_codebook_matmul(x2, pidx, codebook, layout=layout)
@@ -244,13 +282,13 @@ def packed_quantized_matmul_t(x: torch.Tensor, pidx: torch.Tensor,
                               codebook: torch.Tensor, *,
                               layout: PackedLayout) -> torch.Tensor:
     """y[..., V] = x[..., D] · codebook[unpack(pidx)]ᵀ — the fused tied LM
-    head over a packed [V, D] leaf (either word order)."""
-    if not x.is_cuda:
+    head over a packed [V, D] leaf (either word order): the fused kernel
+    on the card; decode, then dot on the CPU and for a grouped or
+    non-matrix leaf."""
+    if not x.is_cuda or pidx.ndim != 2 or layout.shape is not None \
+            or codebook.ndim != 1:
         w = decode_packed_leaf(pidx, codebook, layout)
         return (x @ w.transpose(-1, -2)).to(x.dtype)
-    if pidx.ndim != 2 or layout.shape is not None or codebook.ndim != 1:
-        raise _not_ported("a grouped / non-matrix transposed packed matmul",
-                          "module 6")
     if tuple(pidx.shape) != layout.word_shape:
         raise ValueError(f"pidx {tuple(pidx.shape)} != layout word shape "
                          f"{layout.word_shape} ({layout})")

@@ -171,6 +171,49 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                 scale=scale)
 
 
+def mla_decode_attention_ref(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                             gkv: torch.Tensor, grope: torch.Tensor,
+                             valid: torch.Tensor, *,
+                             scale: float) -> torch.Tensor:
+    """Absorbed-MLA one-token attention over a per-row latent view (the
+    reference's ``_paged_softmax_mla``): q_eff [B,1,H,L]; q_rope
+    [B,1,H,R]; gkv [B,cap,L]; grope [B,cap,R]; valid [B or 1, cap] bool →
+    latent context [B,1,H,L].  Logits (q_eff·c + q_rope·r)·scale in f32,
+    masked by select, softmax over the whole view, the context from the
+    same latent rows."""
+    full_f32()
+    logits = (torch.einsum("bqhl,bsl->bhqs", q_eff, gkv)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, grope))
+    logits = logits.float() * scale
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    attn = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqs,bsl->bqhl", attn.to(gkv.dtype), gkv)
+
+
+def _slot_valid(pos: torch.Tensor, alive: torch.Tensor, cap: int,
+                device) -> torch.Tensor:
+    idx = torch.arange(cap, device=device)
+    return (idx[None, :] <= pos.long()[:, None]) & alive.bool()[:, None]
+
+
+def mla_paged_attention_ref(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                            c_pool: torch.Tensor, r_pool: torch.Tensor,
+                            page_table: torch.Tensor, pos: torch.Tensor,
+                            alive: torch.Tensor, *,
+                            scale: float) -> torch.Tensor:
+    """Plain version of ``mla_paged_attention``: gather the latent pools
+    [P+1, page, L] / [P+1, page, R] through the page table, mask rows past
+    ``pos`` and dead slots, attend → [B,1,H,L].  Dead slots follow the jnp
+    spec (the trash page's mean latent row); the CUDA kernel, like the
+    Pallas kernel, writes 0 there."""
+    gkv = gather_pages_ref(c_pool, page_table, alive)
+    grope = gather_pages_ref(r_pool, page_table, alive)
+    valid = _slot_valid(pos, alive, gkv.shape[1], q_eff.device)
+    return mla_decode_attention_ref(q_eff, q_rope, gkv, grope, valid,
+                                    scale=scale)
+
+
 # ---------------------------------------------------------------------------
 # Codebook-quantized KV pages
 #
@@ -248,3 +291,22 @@ def blockwise_prefill_quant_ref(q, k_words, v_words, k_cb, v_cb, q_pos,
     return blockwise_prefill_ref(q, gk, gv, q_pos, k_pos, window=window,
                                  softcap=softcap, scale=scale,
                                  token_tile=token_tile)
+
+
+def mla_paged_attention_quant_ref(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                                  c_words: torch.Tensor,
+                                  r_words: torch.Tensor, c_cb: torch.Tensor,
+                                  r_cb: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  pos: torch.Tensor, alive: torch.Tensor, *,
+                                  bits: int, kv_lora: int, rope_dim: int,
+                                  scale: float) -> torch.Tensor:
+    """Plain version of ``mla_paged_attention_quant``: dequantize the
+    slots' latent word pages [P+1, page, Wd] through their per-page
+    codebooks [P+1, 1, K], then the dense route's math."""
+    gkv = dequant_pages_ref(c_words, c_cb, page_table, alive, kv_lora, bits)
+    grope = dequant_pages_ref(r_words, r_cb, page_table, alive, rope_dim,
+                              bits)
+    valid = _slot_valid(pos, alive, gkv.shape[1], q_eff.device)
+    return mla_decode_attention_ref(q_eff, q_rope, gkv, grope, valid,
+                                    scale=scale)

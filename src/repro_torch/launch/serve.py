@@ -16,14 +16,20 @@ one-shot lockstep loop (``repro_torch.engine.oneshot``, the engine's
 oracle) over ``--batch`` prompts; it keeps dense KV and refuses
 ``--kv-bits``.
 
-``--packed DIR`` serves a PackedModel artifact (the reference's npz +
-``manifest.json`` format): with ``--serve-layout packed`` every quantized
-leaf stays bit-packed on the device and runs through the CUDA kernels
-(embedding gather, every projection, the tied LM head; prefill attention
-through the page gather and the blockwise-prefill kernel; decode attention
-through the paged-attention kernel).  Without ``--packed`` the model is
-dense with random weights from a seed.  It runs on the card unless
-``--device cpu`` is given; with no card it stops with an error.
+``--arch`` picks ``qwen1.5-0.5b`` (GQA, dense MLP, tied head) or
+``deepseek-v2-lite-16b`` (MLA, MoE, untied head), at full width or
+``--reduced``.  ``--packed DIR`` serves a PackedModel artifact (the
+reference's npz + ``manifest.json`` format): with ``--serve-layout packed``
+every quantized leaf stays bit-packed on the device and runs through the
+CUDA kernels (embedding gather, every projection, the tied LM head;
+prefill attention through the page gather and the blockwise-prefill
+kernel; decode attention through the paged-attention kernels, GQA or
+MLA); with ``--serve-layout uint8`` every projection runs through the
+uint8-index kernel.  MoE expert stacks are decoded to a dense temporary
+and multiplied outside any kernel, as in the reference.  Without
+``--packed`` the model is dense with random weights from a seed.  It runs
+on the card unless ``--device cpu`` is given; with no card it stops with
+an error.
 
 The reference's flags whose path is not ported yet are accepted by name
 and refused with the ROADMAP.md module that will port them.
@@ -41,7 +47,7 @@ from repro_torch.configs import get_config, list_archs, reduce_config
 from repro_torch.core.compression import ArtifactError, PackedModel
 from repro_torch.engine import Engine, Request, greedy_generate
 from repro_torch.kernels import build
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import ModelConfig, init_params
 
 MLP_LEAVES = ("w_in", "w_gate", "w_out")
 
@@ -70,9 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="PackedModel artifact dir: serve quantized")
     ap.add_argument("--serve-layout", default="packed",
                     choices=("packed", "uint8"),
-                    help="bit-packed uint32 words or uint8 indices "
-                         "(uint8 runs on the CPU only until its kernel is "
-                         "ported)")
+                    help="bit-packed uint32 words or uint8 indices")
     ap.add_argument("--serve-leaves", default="all", choices=("all", "mlp"))
     ap.add_argument("--no-engine", action="store_true",
                     help="one-shot lockstep loop (the engine's oracle)")
@@ -249,25 +253,26 @@ def _serve_engine(args, cfg, params, device) -> dict:
     }
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def main(argv: Optional[Sequence[str]] = None,
+         cfg: Optional[ModelConfig] = None) -> dict:
     """Serve through the engine (default) or the one-shot loop
     (``--no-engine``).  Engine mode returns the prompts, the requests,
     the finished streams, every typed result, the stats summary and the
     engine; one-shot mode the prompts, the tokens, the per-step logits
-    [B, gen_len, V] (on the device) and the timings."""
+    [B, gen_len, V] (on the device) and the timings.  ``cfg``, when given,
+    is served in place of ``--arch`` / ``--reduced`` (a config cut in
+    another way, such as a full-width model at a smaller depth)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
     device = torch.device(args.device)
-    if device.type == "cuda" and args.serve_layout == "uint8":
-        ap.error("--serve-layout uint8 has no CUDA kernel yet (ROADMAP.md "
-                 "section 2, kernel row 11); it runs with --device cpu")
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device is visible: this launcher runs on the card "
                  "(pass --device cpu for the plain CPU versions)")
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_config(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduce_config(cfg)
     if device.type == "cuda":
         build.build()
     params = _load_params(args, cfg, device)

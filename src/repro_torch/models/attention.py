@@ -1,11 +1,11 @@
-"""GQA attention for serving: projections, the blockwise-prefill block
-step, the contiguous-cache decode step and the engine's paged steps over
-dense and codebook-quantized KV pages (port of the ported parts of
-``repro/models/attention.py``).
+"""GQA and MLA attention for serving: projections, the blockwise-prefill
+block steps, the contiguous-cache decode steps and the engine's paged
+steps over dense and codebook-quantized KV (or latent) pages (port of the
+ported parts of ``repro/models/attention.py``).
 
 Not ported yet (each raises or is absent): the full-sequence
-``chunked_attention`` / ``gqa_forward`` training path, sliding-window
-rings and MLA, quantized or not (ROADMAP.md modules 8 and 13).
+``chunked_attention`` / ``gqa_forward`` / ``mla_forward`` training path
+and sliding-window rings (ROADMAP.md modules 8 and 13).
 """
 from __future__ import annotations
 
@@ -15,9 +15,11 @@ import torch
 
 from repro_torch.core import kvquant
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.ref import decode_attention_ref
-from repro_torch.models.layers import apply_rope, init_normal
-from repro_torch.models.qleaf import qmatmul
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                     dequant_view_ref,
+                                     mla_decode_attention_ref)
+from repro_torch.models.layers import apply_rope, init_normal, rms_norm
+from repro_torch.models.qleaf import qmatmul, qweight
 
 
 def init_gqa(generator: torch.Generator, d_model: int, n_heads: int,
@@ -477,3 +479,316 @@ def gqa_prefill_block_paged_quant(p, x: torch.Tensor,
         torch.arange(kw_view.shape[1], device=x.device), page_size=page_size,
         bits=kv_bits, head_dim=head_dim, softcap=attn_softcap, scale=scale)
     return qmatmul(p, "wo", o.reshape(b, c, n_heads * head_dim)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+#
+# A layer caches one latent row per token: c_kv [kv_lora] (the normalised
+# down-projection) and k_rope [rope_dim] (its rotary key), shared by every
+# head.  Decode attends in the latent space (the absorbed form: q_eff =
+# q_nope · W_UK, logits = q_eff · c + q_rope · r, context = attn · c, then
+# W_UV); prefill re-expands the latent view through W_UK / W_UV and runs
+# the dense blockwise-prefill route with keys of width nope + rope and
+# values of width v_dim.
+# ---------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, d_model: int, n_heads: int, *,
+             kv_lora: int, rope_dim: int, nope_dim: int, v_dim: int,
+             dtype=torch.float32, device=None) -> dict:
+    s = d_model ** -0.5
+    qdim = n_heads * (nope_dim + rope_dim)
+    return {
+        "wq": init_normal(generator, (d_model, qdim), s, dtype, device),
+        "w_dkv": init_normal(generator, (d_model, kv_lora + rope_dim), s,
+                             dtype, device),
+        "w_uk": init_normal(generator, (kv_lora, n_heads * nope_dim),
+                            kv_lora ** -0.5, dtype, device),
+        "w_uv": init_normal(generator, (kv_lora, n_heads * v_dim),
+                            kv_lora ** -0.5, dtype, device),
+        "wo": init_normal(generator, (n_heads * v_dim, d_model),
+                          (n_heads * v_dim) ** -0.5, dtype, device),
+        "kv_norm_scale": torch.zeros(kv_lora, dtype=dtype, device=device),
+    }
+
+
+def _mla_q(p, x: torch.Tensor, n_heads: int, nope_dim: int, rope_dim: int,
+           positions: torch.Tensor, rope_theta: float):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope]); positions broadcast
+    against [B, S] ([1, S] for a block, [B, 1] for a per-slot step)."""
+    b, s, _ = x.shape
+    q = qmatmul(p, "wq", x).reshape(b, s, n_heads, nope_dim + rope_dim)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, rope_theta)
+
+
+def _mla_latent(p, x: torch.Tensor, kv_lora: int, positions: torch.Tensor,
+                rope_theta: float):
+    """The rows the layer caches: (c_kv [B,S,kv_lora], k_rope
+    [B,S,rope_dim])."""
+    dkv = qmatmul(p, "w_dkv", x)
+    c_kv = rms_norm(dkv[..., :kv_lora], p["kv_norm_scale"])
+    k_rope = apply_rope(dkv[..., None, kv_lora:], positions,
+                        rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_absorb_q(p, q_nope: torch.Tensor, kv_lora: int, n_heads: int,
+                  nope_dim: int) -> torch.Tensor:
+    """q_eff = q_nope · W_UK per head: [B,1,H,nope] → [B,1,H,kv_lora]."""
+    w_uk = qweight(p, "w_uk").reshape(kv_lora, n_heads, nope_dim)
+    return torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
+
+
+def _mla_out(p, ctx: torch.Tensor, kv_lora: int, n_heads: int,
+             v_dim: int) -> torch.Tensor:
+    """Latent context [B,1,H,kv_lora] → W_UV per head → W_O."""
+    b = ctx.shape[0]
+    w_uv = qweight(p, "w_uv").reshape(kv_lora, n_heads, v_dim)
+    o = torch.einsum("bqhl,lhd->bqhd", ctx, w_uv).reshape(b, 1,
+                                                         n_heads * v_dim)
+    return qmatmul(p, "wo", o)
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # [B, C, kv_lora]
+    k_rope: torch.Tensor     # [B, C, rope_dim]
+
+
+def init_mla_cache(batch: int, capacity: int, kv_lora: int, rope_dim: int,
+                   dtype=torch.float32, device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros(batch, capacity, kv_lora, dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros(batch, capacity, rope_dim, dtype=dtype,
+                           device=device))
+
+
+def mla_decode(p, x_t: torch.Tensor, cache: MLACache, pos: int, *,
+               n_heads: int, kv_lora: int, rope_dim: int, nope_dim: int,
+               v_dim: int, rope_theta: float = 10000.0):
+    """Absorbed one-token decode over a contiguous latent cache, in plain
+    torch (the reference calls no kernel here; the engine's paged decode
+    shares its attention routine).  The cache row ``pos`` is written in
+    place.  Returns (out [B,1,D], cache)."""
+    positions = torch.tensor([[pos]], device=x_t.device)
+    q_nope, q_rope = _mla_q(p, x_t, n_heads, nope_dim, rope_dim, positions,
+                            rope_theta)
+    c_kv, k_rope = _mla_latent(p, x_t, kv_lora, positions, rope_theta)
+    cache.c_kv[:, pos] = c_kv[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[:, pos] = k_rope[:, 0].to(cache.k_rope.dtype)
+    q_eff = _mla_absorb_q(p, q_nope, kv_lora, n_heads, nope_dim)
+    valid = torch.arange(cache.c_kv.shape[1], device=x_t.device) <= pos
+    ctx = mla_decode_attention_ref(q_eff, q_rope, cache.c_kv, cache.k_rope,
+                                   valid[None],
+                                   scale=(nope_dim + rope_dim) ** -0.5)
+    return _mla_out(p, ctx, kv_lora, n_heads, v_dim), cache
+
+
+def _mla_block_attend(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                      c_view: torch.Tensor, r_view: torch.Tensor,
+                      t: torch.Tensor, *, n_heads: int, nope_dim: int,
+                      rope_dim: int, v_dim: int) -> torch.Tensor:
+    """Expand a latent view [B,S,kv_lora] / [B,S,rope] through W_UK / W_UV
+    (row-wise, so a row's keys do not depend on the view's length) and
+    attend one block's queries over it: [B,c,H,v_dim]."""
+    b, s = c_view.shape[0], c_view.shape[1]
+    k_nope = qmatmul(p, "w_uk", c_view).reshape(b, s, n_heads, nope_dim)
+    v = qmatmul(p, "w_uv", c_view).reshape(b, s, n_heads, v_dim)
+    k = torch.cat([k_nope, r_view[:, :, None, :].expand(b, s, n_heads,
+                                                        rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return dispatch.blockwise_prefill_attention(
+        q, k, v, t, torch.arange(s, device=t.device),
+        scale=(nope_dim + rope_dim) ** -0.5)
+
+
+def mla_prefill_block(p, x: torch.Tensor, buf_c: torch.Tensor,
+                      buf_r: torch.Tensor, start: int, *, n_heads: int,
+                      kv_lora: int, rope_dim: int, nope_dim: int, v_dim: int,
+                      rope_theta: float = 10000.0):
+    """One prompt block of an MLA layer on the one-shot side: append the
+    block's latent rows to the growing buffers and attend over the
+    re-expansion of the result.  Returns (out [B,c,D], buf_c, buf_r)."""
+    b, c, _ = x.shape
+    t = start + torch.arange(c, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, n_heads, nope_dim, rope_dim, t[None, :],
+                            rope_theta)
+    c_kv, k_rope = _mla_latent(p, x, kv_lora, t[None, :], rope_theta)
+    bc = torch.cat([buf_c, c_kv.to(buf_c.dtype)], dim=1)
+    br = torch.cat([buf_r, k_rope.to(buf_r.dtype)], dim=1)
+    o = _mla_block_attend(p, q_nope, q_rope, bc, br, t, n_heads=n_heads,
+                          nope_dim=nope_dim, rope_dim=rope_dim, v_dim=v_dim)
+    return qmatmul(p, "wo", o.reshape(b, c, n_heads * v_dim)), bc, br
+
+
+# --- paged latent pages (continuous-batching engine) ------------------------
+
+class PagedMLACache(NamedTuple):
+    c_kv: torch.Tensor       # [n_pages + 1, page, kv_lora]  (page 0 = trash)
+    k_rope: torch.Tensor     # [n_pages + 1, page, rope_dim]
+
+
+def init_paged_mla_cache(n_pages: int, page_size: int, kv_lora: int,
+                         rope_dim: int, dtype=torch.float32,
+                         device=None) -> PagedMLACache:
+    return PagedMLACache(
+        c_kv=torch.zeros(n_pages + 1, page_size, kv_lora, dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros(n_pages + 1, page_size, rope_dim, dtype=dtype,
+                           device=device))
+
+
+def mla_decode_paged(p, x_t: torch.Tensor, cache: PagedMLACache,
+                     page_table: torch.Tensor, pos: torch.Tensor,
+                     alive: torch.Tensor, *, n_heads: int, kv_lora: int,
+                     rope_dim: int, nope_dim: int, v_dim: int,
+                     page_size: int, rope_theta: float = 10000.0):
+    """Absorbed MLA decode for a batch of engine slots over the paged
+    latent cache (per-slot ``pos``; dead slots write the trash page).
+    Attention runs through the MLA paged-decode route.  Returns (out
+    [B,1,D], cache) — the pools are written in place."""
+    posb = pos[:, None]
+    q_nope, q_rope = _mla_q(p, x_t, n_heads, nope_dim, rope_dim, posb,
+                            rope_theta)
+    c_kv, k_rope = _mla_latent(p, x_t, kv_lora, posb, rope_theta)
+    _write_slot(cache.c_kv, page_table, pos, alive, c_kv[:, 0], page_size)
+    _write_slot(cache.k_rope, page_table, pos, alive, k_rope[:, 0],
+                page_size)
+    q_eff = _mla_absorb_q(p, q_nope, kv_lora, n_heads, nope_dim)
+    ctx = dispatch.mla_paged_attention(
+        q_eff, q_rope, cache.c_kv, cache.k_rope, page_table, pos, alive,
+        scale=(nope_dim + rope_dim) ** -0.5)
+    return _mla_out(p, ctx, kv_lora, n_heads, v_dim), cache
+
+
+def mla_prefill_block_paged(p, x: torch.Tensor, cache: PagedMLACache,
+                            page_table: torch.Tensor, start: int,
+                            alive: torch.Tensor, *, n_heads: int,
+                            kv_lora: int, rope_dim: int, nope_dim: int,
+                            v_dim: int, page_size: int,
+                            rope_theta: float = 10000.0):
+    """One prompt block of an MLA layer over the paged latent cache: the
+    block's latent rows land in the slot's pages, the slot's page view is
+    gathered and re-expanded, and the block attends over it (rows past the
+    block mask out causally).  Returns (out [B,c,D], cache)."""
+    b, c, _ = x.shape
+    t = start + torch.arange(c, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, n_heads, nope_dim, rope_dim, t[None, :],
+                            rope_theta)
+    c_kv, k_rope = _mla_latent(p, x, kv_lora, t[None, :], rope_theta)
+    _write_block_slot(cache.c_kv, page_table, start, alive, c_kv, page_size)
+    _write_block_slot(cache.k_rope, page_table, start, alive, k_rope,
+                      page_size)
+    c_view = _gather_slots(cache.c_kv, page_table, alive)  # [B,cap,lora]
+    r_view = _gather_slots(cache.k_rope, page_table, alive)
+    o = _mla_block_attend(p, q_nope, q_rope, c_view, r_view, t,
+                          n_heads=n_heads, nope_dim=nope_dim,
+                          rope_dim=rope_dim, v_dim=v_dim)
+    return qmatmul(p, "wo", o.reshape(b, c, n_heads * v_dim)), cache
+
+
+# --- codebook-quantized latent pages ----------------------------------------
+#
+# Latent pages always carry one codebook per page and tensor (the
+# reference fixes the "page" grouping for MLA).  Their writes go through the
+# GQA write path above, which takes rows [..., KV, hd]: a latent row is a
+# one-"head" row ([..., 1, d]) and a word pool [P+1, page, Wd] is viewed as
+# [P+1, page, 1, Wd], so the writes land in the pool itself.
+
+
+class QuantPagedMLACache(NamedTuple):
+    c_words: torch.Tensor    # [n_pages + 1, page, ⌈kv_lora/lanes⌉] int32
+    r_words: torch.Tensor    # [n_pages + 1, page, ⌈rope_dim/lanes⌉] int32
+    c_cb: torch.Tensor       # [n_pages + 1, 1, K]
+    r_cb: torch.Tensor
+
+
+def init_quant_paged_mla_cache(n_pages: int, page_size: int, kv_lora: int,
+                               rope_dim: int, bits: int, dtype=torch.float32,
+                               device=None) -> QuantPagedMLACache:
+    k = kvquant.kv_entries(kvquant.check_kv_bits(bits))
+
+    def words(d):
+        return torch.zeros(n_pages + 1, page_size, kvquant.words_per(d, bits),
+                           dtype=torch.int32, device=device)
+
+    return QuantPagedMLACache(
+        c_words=words(kv_lora), r_words=words(rope_dim),
+        c_cb=torch.zeros(n_pages + 1, 1, k, dtype=dtype, device=device),
+        r_cb=torch.zeros(n_pages + 1, 1, k, dtype=dtype, device=device))
+
+
+def _one_group(t: torch.Tensor) -> torch.Tensor:
+    """A latent row [..., d] (or word pool [..., Wd]) as one group
+    [..., 1, d]: a view."""
+    return t.unsqueeze(-2)
+
+
+def mla_decode_paged_quant(p, x_t: torch.Tensor, cache: QuantPagedMLACache,
+                           page_table: torch.Tensor, pos: torch.Tensor,
+                           alive: torch.Tensor, *, n_heads: int,
+                           kv_lora: int, rope_dim: int, nope_dim: int,
+                           v_dim: int, page_size: int, kv_bits: int,
+                           rope_theta: float = 10000.0,
+                           fit_slots: Optional[torch.Tensor] = None):
+    """``mla_decode_paged`` over codebook-quantized latent pages: the
+    token's latent rows are quantized into the slots' pages (a slot that
+    starts a page fits its codebooks), then attended through the quantized
+    MLA paged-decode route.  ``fit_slots`` as in
+    :func:`gqa_decode_paged_quant`.  Returns (out [B,1,D], cache), written
+    in place."""
+    posb = pos[:, None]
+    q_nope, q_rope = _mla_q(p, x_t, n_heads, nope_dim, rope_dim, posb,
+                            rope_theta)
+    c_kv, k_rope = _mla_latent(p, x_t, kv_lora, posb, rope_theta)
+    rows = (fit_slots if fit_slots is not None
+            else first_write_slots(pos, page_size))
+    for words, cbs, new in ((cache.c_words, cache.c_cb, c_kv[:, 0]),
+                            (cache.r_words, cache.r_cb, k_rope[:, 0])):
+        new = _one_group(new)
+        cb_fit = (kvquant.fit_codebooks(new[rows], kv_bits).to(cbs.dtype)
+                  if rows.numel() else None)
+        _write_slot_quant(_one_group(words), cbs, page_table, pos, alive,
+                          new, page_size, kv_bits, "page",
+                          fit=(rows, cb_fit))
+    q_eff = _mla_absorb_q(p, q_nope, kv_lora, n_heads, nope_dim)
+    ctx = dispatch.mla_paged_attention_quant(
+        q_eff, q_rope, cache.c_words, cache.r_words, cache.c_cb, cache.r_cb,
+        page_table, pos, alive, bits=kv_bits, kv_lora=kv_lora,
+        rope_dim=rope_dim, scale=(nope_dim + rope_dim) ** -0.5)
+    return _mla_out(p, ctx, kv_lora, n_heads, v_dim), cache
+
+
+def mla_prefill_block_paged_quant(p, x: torch.Tensor,
+                                  cache: QuantPagedMLACache,
+                                  page_table: torch.Tensor, start: int,
+                                  alive: torch.Tensor, *, n_heads: int,
+                                  kv_lora: int, rope_dim: int, nope_dim: int,
+                                  v_dim: int, page_size: int, kv_bits: int,
+                                  rope_theta: float = 10000.0):
+    """MLA block prefill over codebook-quantized latent pages: the block's
+    latent rows are quantized into the slot's pages, then the slot's word
+    view is gathered, dequantized in plain torch (the expansion needs dense
+    latents, so the reference has no fused quantized MLA prefill kernel)
+    and re-expanded as on dense pages.  Returns (out [B,c,D], cache)."""
+    b, c, _ = x.shape
+    t = start + torch.arange(c, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, n_heads, nope_dim, rope_dim, t[None, :],
+                            rope_theta)
+    c_kv, k_rope = _mla_latent(p, x, kv_lora, t[None, :], rope_theta)
+    for words, cbs, new in ((cache.c_words, cache.c_cb, c_kv),
+                            (cache.r_words, cache.r_cb, k_rope)):
+        _write_block_slot_quant(_one_group(words), cbs, page_table, start,
+                                alive, _one_group(new), page_size, kv_bits,
+                                "page")
+    masked = torch.where(alive.bool()[:, None], page_table.long(), 0)
+    c_view, r_view = (
+        dequant_view_ref(_gather_slots(words, page_table, alive),
+                         cbs[masked], d, kv_bits, page_size).to(cbs.dtype)
+        for words, cbs, d in ((cache.c_words, cache.c_cb, kv_lora),
+                              (cache.r_words, cache.r_cb, rope_dim)))
+    o = _mla_block_attend(p, q_nope, q_rope, c_view, r_view, t,
+                          n_heads=n_heads, nope_dim=nope_dim,
+                          rope_dim=rope_dim, v_dim=v_dim)
+    return qmatmul(p, "wo", o.reshape(b, c, n_heads * v_dim)), cache

@@ -7,13 +7,14 @@ a layer ``pattern``.  Parameters keep the reference's stacked layout
 reference scans over groups, this port loops over them in Python and
 slices each leaf ``[g]`` (a view, no copy).
 
-Ported: global GQA mixers with dense (gated) MLPs — ``init_params``,
-``prefill(block=…)`` (blockwise, through the blockwise-prefill kernel),
-``init_cache`` and ``decode_step``, and the engine's entry points over
-dense or codebook-quantized KV pages (``cfg.kv_bits``): ``init_paged_cache``,
-``decode_step_slots`` and ``prefill_chunk_slots``.  Other mixers / MLP
-kinds, sliding windows, sinusoidal positions and VLM patches raise
-``NotImplementedError`` naming the ROADMAP.md module that ports them.
+Ported: global GQA and MLA mixers with dense (gated) MLPs or MoE —
+``init_params``, ``prefill(block=…)`` (blockwise, through the
+blockwise-prefill kernel), ``init_cache`` and ``decode_step``, and the
+engine's entry points over dense or codebook-quantized KV (or latent)
+pages (``cfg.kv_bits``): ``init_paged_cache``, ``decode_step_slots`` and
+``prefill_chunk_slots``.  SSM and RG-LRU mixers, sliding windows,
+sinusoidal positions and VLM patches raise ``NotImplementedError`` naming
+the ROADMAP.md module that ports them.
 """
 from __future__ import annotations
 
@@ -28,12 +29,30 @@ from repro_torch.core import kvquant
 from repro_torch.kernels.ref import full_f32
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import qleaf as Q
 
 
 # ---------------------------------------------------------------------------
 # Config
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    kv_lora: int = 512
+    rope_dim: int = 64
+    nope_dim: int = 128
+    v_dim: int = 128
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerKind:
@@ -101,15 +120,20 @@ def check_ported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     "gqa_local (sliding-window ring) is not ported yet: "
                     "ROADMAP.md module 8")
-            if kind.mixer in ("mla", "rglru"):
+            if kind.mixer == "rglru":
                 raise NotImplementedError(
                     f"mixer {kind.mixer!r} is not ported yet: ROADMAP.md "
                     f"module 8")
-            if kind.mixer == "ssm" or kind.mlp == "moe":
+            if kind.mixer == "ssm":
                 raise NotImplementedError(
                     f"layer {kind} is not ported yet: ROADMAP.md module 6")
-            if kind.mixer != "gqa" or kind.mlp not in ("dense", "none"):
+            if kind.mixer not in ("gqa", "mla") \
+                    or kind.mlp not in ("dense", "moe", "none"):
                 raise ValueError(f"unknown layer kind {kind}")
+            if kind.mixer == "mla" and cfg.mla is None:
+                raise ValueError(f"layer {kind} needs cfg.mla")
+            if kind.mlp == "moe" and cfg.moe is None:
+                raise ValueError(f"layer {kind} needs cfg.moe")
     if cfg.pos_embed != "rope" or cfg.vlm_patches:
         raise NotImplementedError("sinusoidal positions / VLM patches are "
                                   "not ported yet: ROADMAP.md module 8")
@@ -128,13 +152,28 @@ def _init_layer(generator, cfg: ModelConfig, kind: LayerKind, dtype,
                 device) -> dict:
     p: dict = {"ln1_norm_scale": torch.zeros(cfg.d_model, dtype=dtype,
                                              device=device)}
-    p["mixer"] = attn.init_gqa(generator, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                               cfg.head_dim, cfg.qkv_bias, dtype, device)
+    if kind.mixer == "mla":
+        m = cfg.mla
+        p["mixer"] = attn.init_mla(generator, cfg.d_model, cfg.n_heads,
+                                   kv_lora=m.kv_lora, rope_dim=m.rope_dim,
+                                   nope_dim=m.nope_dim, v_dim=m.v_dim,
+                                   dtype=dtype, device=device)
+    else:
+        p["mixer"] = attn.init_gqa(generator, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv, cfg.head_dim, cfg.qkv_bias,
+                                   dtype, device)
     if kind.mlp != "none":
         p["ln2_norm_scale"] = torch.zeros(cfg.d_model, dtype=dtype,
                                           device=device)
-        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_act,
-                              cfg.gated_mlp, dtype, device)
+        if kind.mlp == "moe":
+            m = cfg.moe
+            p["mlp"] = moe_mod.init_moe(generator, cfg.d_model,
+                                        m.d_ff_expert, m.n_experts,
+                                        m.n_shared, cfg.mlp_act, dtype,
+                                        device)
+        else:
+            p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                  cfg.mlp_act, cfg.gated_mlp, dtype, device)
     if cfg.post_norms:
         p["post1_norm_scale"] = torch.zeros(cfg.d_model, dtype=dtype,
                                             device=device)
@@ -205,8 +244,13 @@ def _mlp_residual(kind: LayerKind, p, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     if kind.mlp == "none":
         return x
-    out = L.apply_mlp(p["mlp"], L.rms_norm(x, p["ln2_norm_scale"]),
-                      cfg.mlp_act)
+    h = L.rms_norm(x, p["ln2_norm_scale"])
+    if kind.mlp == "moe":
+        out = moe_mod.apply_moe(p["mlp"], h, top_k=cfg.moe.top_k,
+                                act=cfg.mlp_act,
+                                capacity_factor=cfg.moe.capacity_factor)
+    else:
+        out = L.apply_mlp(p["mlp"], h, cfg.mlp_act)
     if cfg.post_norms:
         out = L.rms_norm(out, p["post2_norm_scale"])
     return x + out
@@ -223,19 +267,45 @@ def _mixer_residual(p, x: torch.Tensor, out: torch.Tensor,
 # Caches and decode
 # ---------------------------------------------------------------------------
 
+def _stacked(one, groups: int):
+    """A one-layer cache NamedTuple with every leaf repeated over a
+    leading [G] group axis (a copy per group)."""
+    return type(one)(*(t.expand((groups,) + t.shape).clone() for t in one))
+
+
+def _init_layer_cache(kind: LayerKind, cfg: ModelConfig, batch: int,
+                      capacity: int, dtype, device):
+    if kind.mixer == "mla":
+        m = cfg.mla
+        return attn.init_mla_cache(batch, capacity, m.kv_lora, m.rope_dim,
+                                   dtype, device)
+    return attn.init_kv_cache(batch, capacity, cfg.n_kv, cfg.head_dim, dtype,
+                              device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.float32, device=None):
-    """Stacked caches mirroring the param stacks: leaves
-    [G, B, cap, KV, hd]."""
+    """Stacked caches mirroring the param stacks: leaves [G, B, cap, KV, hd]
+    (``KVCache``) or [G, B, cap, kv_lora] / [G, B, cap, rope_dim]
+    (``MLACache``)."""
     check_ported(cfg)
     return tuple(
-        {f"pos{pi}": attn.KVCache(
-            k=torch.zeros(spec.groups, batch, capacity, cfg.n_kv,
-                          cfg.head_dim, dtype=dtype, device=device),
-            v=torch.zeros(spec.groups, batch, capacity, cfg.n_kv,
-                          cfg.head_dim, dtype=dtype, device=device))
-         for pi in range(len(spec.pattern))}
+        {f"pos{pi}": _stacked(_init_layer_cache(kind, cfg, batch, capacity,
+                                                dtype, device), spec.groups)
+         for pi, kind in enumerate(spec.pattern)}
         for spec in cfg.stacks)
+
+
+def _mla_kw(cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    return dict(n_heads=cfg.n_heads, kv_lora=m.kv_lora, rope_dim=m.rope_dim,
+                nope_dim=m.nope_dim, v_dim=m.v_dim, rope_theta=cfg.rope_theta)
+
+
+def _gqa_kw(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+                attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+                query_scale=cfg.query_scale)
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens_t: torch.Tensor,
@@ -250,11 +320,13 @@ def decode_step(params, cfg: ModelConfig, caches, tokens_t: torch.Tensor,
             for pi, kind in enumerate(spec.pattern):
                 p = _group(sp[f"pos{pi}"], g)
                 c = _group(sc[f"pos{pi}"], g)
-                out, _ = attn.gqa_decode(
-                    p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]), c, pos,
-                    n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                    head_dim=cfg.head_dim, attn_softcap=cfg.attn_softcap,
-                    rope_theta=cfg.rope_theta, query_scale=cfg.query_scale)
+                h = L.rms_norm(x, p["ln1_norm_scale"])
+                if kind.mixer == "mla":
+                    out, _ = attn.mla_decode(p["mixer"], h, c, pos,
+                                             **_mla_kw(cfg))
+                else:
+                    out, _ = attn.gqa_decode(p["mixer"], h, c, pos,
+                                             **_gqa_kw(cfg))
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x), caches
@@ -266,8 +338,31 @@ def decode_step(params, cfg: ModelConfig, caches, tokens_t: torch.Tensor,
 
 # Default prompt-block length of the one-shot blockwise prefill (the
 # engine's block length is its prefill chunk; both must partition alike
-# for their streams to agree bit for bit).
+# for their streams to agree bit for bit, and a MoE layer's capacity
+# depends on the block length too).
 DEFAULT_PREFILL_BLOCK = 64
+
+
+def _init_layer_block_state(kind: LayerKind, cfg: ModelConfig, batch: int,
+                            dtype, device):
+    """The growing K/V (or latent) buffers of one layer, length 0."""
+    if kind.mixer == "mla":
+        return _init_layer_cache(kind, cfg, batch, 0, dtype, device)
+    empty = torch.zeros(batch, 0, cfg.n_kv, cfg.head_dim, dtype=dtype,
+                        device=device)
+    return attn.KVCache(k=empty, v=empty)
+
+
+def _apply_mixer_block(kind: LayerKind, p, h: torch.Tensor, state,
+                       start: int, cfg: ModelConfig):
+    """One prompt block through a mixer, growing its buffers."""
+    if kind.mixer == "mla":
+        out, bc, br = attn.mla_prefill_block(p, h, state.c_kv, state.k_rope,
+                                             start, **_mla_kw(cfg))
+        return out, attn.MLACache(c_kv=bc, k_rope=br)
+    out, bk, bv = attn.gqa_prefill_block(p, h, state.k, state.v, start,
+                                         **_gqa_kw(cfg))
+    return out, attn.KVCache(k=bk, v=bv)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -278,7 +373,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     :data:`DEFAULT_PREFILL_BLOCK`, remainder last); each block attends over
     the K/V written so far through ``dispatch.blockwise_prefill_attention``.
     ``last_logits_only`` heads only the final position.  Returns (logits
-    [B, S or 1, V] f32, caches with leaves [G, B, S, KV, hd])."""
+    [B, S or 1, V] f32, caches with leaves [G, B, S, ...])."""
     check_ported(cfg)
     full_f32()
     b, s = tokens.shape
@@ -290,24 +385,17 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         end = min(start + blk, s)
         x = _embed(params, cfg, tokens[:, start:end])
         if states is None:
-            empty = torch.zeros(b, 0, cfg.n_kv, cfg.head_dim, dtype=x.dtype,
-                                device=x.device)
-            states = [[[attn.KVCache(k=empty, v=empty)
+            states = [[[_init_layer_block_state(kind, cfg, b, x.dtype,
+                                                x.device)
                         for _ in range(spec.groups)]
-                       for _ in spec.pattern] for spec in cfg.stacks]
+                       for kind in spec.pattern] for spec in cfg.stacks]
         for spec, sp, st in zip(cfg.stacks, params["stacks"], states):
             for g in range(spec.groups):
                 for pi, kind in enumerate(spec.pattern):
                     p = _group(sp[f"pos{pi}"], g)
-                    buf = st[pi][g]
-                    out, bk, bv = attn.gqa_prefill_block(
-                        p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]),
-                        buf.k, buf.v, start, n_heads=cfg.n_heads,
-                        n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                        attn_softcap=cfg.attn_softcap,
-                        rope_theta=cfg.rope_theta,
-                        query_scale=cfg.query_scale)
-                    st[pi][g] = attn.KVCache(k=bk, v=bv)
+                    out, st[pi][g] = _apply_mixer_block(
+                        kind, p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]),
+                        st[pi][g], start, cfg)
                     x = _mlp_residual(kind, p,
                                       _mixer_residual(p, x, out, cfg), cfg)
         if not last_logits_only:
@@ -317,8 +405,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     logits = (logits_parts[0] if len(logits_parts) == 1
               else torch.cat(logits_parts, dim=1))
     caches = tuple(
-        {f"pos{pi}": attn.KVCache(k=torch.stack([c.k for c in st[pi]]),
-                                  v=torch.stack([c.v for c in st[pi]]))
+        {f"pos{pi}": type(st[pi][0])(*(torch.stack(leaves)
+                                       for leaves in zip(*st[pi])))
          for pi in range(len(spec.pattern))}
         for spec, st in zip(cfg.stacks, states))
     return logits, caches
@@ -328,46 +416,73 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 # Paged caches (continuous-batching engine)
 # ---------------------------------------------------------------------------
 #
-# Global-attention layers share one physical page pool per layer position
-# ([G, n_pages + 1, page, KV, hd]; page 0 is the trash page) indexed by ONE
+# Attention layers share one physical page pool per layer position
+# ([G, n_pages + 1, page, ...]; page 0 is the trash page) indexed by ONE
 # per-slot page table: every layer caches the same logical positions, so
-# the table is model-wide.  ``decode_step_slots`` is the engine's serve
+# the table is model-wide.  A GQA layer's pages hold K and V rows, an MLA
+# layer's its latent rows.  ``decode_step_slots`` is the engine's serve
 # step: the same shapes for any admission / eviction state.
+
+
+def _init_layer_paged_cache(kind: LayerKind, cfg: ModelConfig, n_pages: int,
+                            page_size: int, dtype, device):
+    if kind.mixer == "mla":
+        m = cfg.mla
+        if cfg.kv_bits:
+            return attn.init_quant_paged_mla_cache(
+                n_pages, page_size, m.kv_lora, m.rope_dim, cfg.kv_bits,
+                dtype, device)
+        return attn.init_paged_mla_cache(n_pages, page_size, m.kv_lora,
+                                         m.rope_dim, dtype, device)
+    if cfg.kv_bits:
+        return attn.init_quant_paged_kv_cache(
+            n_pages, page_size, cfg.n_kv, cfg.head_dim, cfg.kv_bits,
+            cfg.kv_cb_mode, dtype, device)
+    return attn.init_paged_kv_cache(n_pages, page_size, cfg.n_kv,
+                                    cfg.head_dim, dtype, device)
 
 
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_size: int, dtype=torch.float32, device=None):
-    """Engine caches mirroring the param stacks: leaves
-    [G, n_pages + 1, page, KV, hd] (``PagedKVCache``), or with
-    ``cfg.kv_bits`` word pools [G, n_pages + 1, page, KV, Wd] int32 and
-    codebooks [G, n_pages + 1, Gcb, K] (``QuantPagedKVCache``).
-    ``n_slots`` sizes the per-slot state of the mixers that keep one (none
-    among the ported ones)."""
+    """Engine caches mirroring the param stacks, leaves [G, n_pages + 1,
+    page, ...]: per GQA layer ``PagedKVCache`` (K/V [.., KV, hd]) or, with
+    ``cfg.kv_bits``, ``QuantPagedKVCache`` (int32 words [.., KV, Wd] and
+    codebooks [G, n_pages + 1, Gcb, K]); per MLA layer ``PagedMLACache``
+    (latent rows [.., kv_lora] / [.., rope_dim]) or ``QuantPagedMLACache``
+    (their words and one codebook per page).  ``n_slots`` sizes the
+    per-slot state of the mixers that keep one (none among the ported
+    ones)."""
     del n_slots
     check_ported(cfg)
-    caches = []
-    for spec in cfg.stacks:
-        stack = {}
-        for pi in range(len(spec.pattern)):
-            if cfg.kv_bits:
-                one = attn.init_quant_paged_kv_cache(
-                    n_pages, page_size, cfg.n_kv, cfg.head_dim, cfg.kv_bits,
-                    cfg.kv_cb_mode, dtype, device)
-            else:
-                one = attn.init_paged_kv_cache(n_pages, page_size, cfg.n_kv,
-                                               cfg.head_dim, dtype, device)
-            stack[f"pos{pi}"] = type(one)(
-                *(t.expand((spec.groups,) + t.shape).clone() for t in one))
-        caches.append(stack)
-    return tuple(caches)
+    return tuple(
+        {f"pos{pi}": _stacked(_init_layer_paged_cache(
+            kind, cfg, n_pages, page_size, dtype, device), spec.groups)
+         for pi, kind in enumerate(spec.pattern)}
+        for spec in cfg.stacks)
 
 
 def cache_page_size(stack_caches) -> int:
-    """Page size of one stack's engine caches, dense or quantized (the
-    pools' page axis)."""
-    c = stack_caches["pos0"]
-    pool = c.k_words if isinstance(c, attn.QuantPagedKVCache) else c.k
-    return pool.shape[2]
+    """Page size of one stack's engine caches, of any kind (the page axis
+    of its first pool)."""
+    return stack_caches["pos0"][0].shape[2]
+
+
+def _apply_mixer_decode_slots(kind: LayerKind, p, h: torch.Tensor, c,
+                              page_table, pos, alive, cfg: ModelConfig,
+                              page_size: int, rows):
+    if kind.mixer == "mla":
+        kw = dict(_mla_kw(cfg), page_size=page_size)
+        if cfg.kv_bits:
+            return attn.mla_decode_paged_quant(
+                p, h, c, page_table, pos, alive, kv_bits=cfg.kv_bits,
+                fit_slots=rows, **kw)
+        return attn.mla_decode_paged(p, h, c, page_table, pos, alive, **kw)
+    kw = dict(_gqa_kw(cfg), page_size=page_size)
+    if cfg.kv_bits:
+        return attn.gqa_decode_paged_quant(
+            p, h, c, page_table, pos, alive, kv_bits=cfg.kv_bits,
+            kv_cb_mode=cfg.kv_cb_mode, fit_slots=rows, **kw)
+    return attn.gqa_decode_paged(p, h, c, page_table, pos, alive, **kw)
 
 
 def decode_step_slots(params, cfg: ModelConfig, caches,
@@ -396,25 +511,32 @@ def decode_step_slots(params, cfg: ModelConfig, caches,
         for g in range(spec.groups):
             for pi, kind in enumerate(spec.pattern):
                 p = _group(sp[f"pos{pi}"], g)
-                c = _group(sc[f"pos{pi}"], g)
-                h = L.rms_norm(x, p["ln1_norm_scale"])
-                kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                          head_dim=cfg.head_dim, page_size=page_size,
-                          attn_softcap=cfg.attn_softcap,
-                          rope_theta=cfg.rope_theta,
-                          query_scale=cfg.query_scale)
-                if cfg.kv_bits:
-                    out, _ = attn.gqa_decode_paged_quant(
-                        p["mixer"], h, c, page_table, pos, alive,
-                        kv_bits=cfg.kv_bits, kv_cb_mode=cfg.kv_cb_mode,
-                        fit_slots=rows, **kw)
-                else:
-                    out, _ = attn.gqa_decode_paged(p["mixer"], h, c,
-                                                   page_table, pos, alive,
-                                                   **kw)
+                out, _ = _apply_mixer_decode_slots(
+                    kind, p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]),
+                    _group(sc[f"pos{pi}"], g), page_table, pos, alive, cfg,
+                    page_size, rows)
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x), caches
+
+
+def _apply_mixer_prefill_slot(kind: LayerKind, p, h: torch.Tensor, c,
+                              table_row, start: int, alive,
+                              cfg: ModelConfig, page_size: int):
+    if kind.mixer == "mla":
+        kw = dict(_mla_kw(cfg), page_size=page_size)
+        if cfg.kv_bits:
+            return attn.mla_prefill_block_paged_quant(
+                p, h, c, table_row, start, alive, kv_bits=cfg.kv_bits, **kw)
+        return attn.mla_prefill_block_paged(p, h, c, table_row, start, alive,
+                                            **kw)
+    kw = dict(_gqa_kw(cfg), page_size=page_size)
+    if cfg.kv_bits:
+        return attn.gqa_prefill_block_paged_quant(
+            p, h, c, table_row, start, alive, kv_bits=cfg.kv_bits,
+            kv_cb_mode=cfg.kv_cb_mode, **kw)
+    return attn.gqa_prefill_block_paged(p, h, c, table_row, start, alive,
+                                        **kw)
 
 
 def prefill_chunk_slots(params, cfg: ModelConfig, caches,
@@ -423,10 +545,11 @@ def prefill_chunk_slots(params, cfg: ModelConfig, caches,
     """Engine blockwise prefill: ONE block of ``c`` prompt tokens for ONE
     slot against the shared paged caches.
 
-    tokens_c [1, c] (positions [start, start + c)).  The block's K/V lands
-    in the slot's pages (in place).  Returns (last-position logits
-    [1, 1, V] f32, caches) — the logits matter only on the prompt's final
-    block, where they seed the first sampled token."""
+    tokens_c [1, c] (positions [start, start + c)).  The block's K/V (or
+    latent rows) land in the slot's pages (in place).  Returns
+    (last-position logits [1, 1, V] f32, caches) — the logits matter only
+    on the prompt's final block, where they seed the first sampled
+    token."""
     full_f32()
     table_row = page_table[slot:slot + 1]
     alive = torch.ones(1, dtype=torch.bool, device=tokens_c.device)
@@ -436,20 +559,10 @@ def prefill_chunk_slots(params, cfg: ModelConfig, caches,
         for g in range(spec.groups):
             for pi, kind in enumerate(spec.pattern):
                 p = _group(sp[f"pos{pi}"], g)
-                c = _group(sc[f"pos{pi}"], g)
-                h = L.rms_norm(x, p["ln1_norm_scale"])
-                kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                          head_dim=cfg.head_dim, page_size=page_size,
-                          attn_softcap=cfg.attn_softcap,
-                          rope_theta=cfg.rope_theta,
-                          query_scale=cfg.query_scale)
-                if cfg.kv_bits:
-                    out, _ = attn.gqa_prefill_block_paged_quant(
-                        p["mixer"], h, c, table_row, start, alive,
-                        kv_bits=cfg.kv_bits, kv_cb_mode=cfg.kv_cb_mode, **kw)
-                else:
-                    out, _ = attn.gqa_prefill_block_paged(
-                        p["mixer"], h, c, table_row, start, alive, **kw)
+                out, _ = _apply_mixer_prefill_slot(
+                    kind, p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]),
+                    _group(sc[f"pos{pi}"], g), table_row, start, alive, cfg,
+                    page_size)
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x[:, -1:, :]), caches

@@ -99,6 +99,23 @@ def test_pack_words_equal_reference(k, shape):
         tc.unpack_indices(flat, kd * n, k).numpy(), idx.ravel())
 
 
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("shape", [(37, 29), (3, 70)])
+def test_torch_packer_equals_numpy_packers(k, shape):
+    """``pack_lanes_torch`` (the device-side packer of ``serving_params``
+    and ``chip_smoke.py``) writes the numpy packers' words, bit for bit."""
+    idx = np.random.RandomState(k + 1).randint(0, k, size=shape)
+    t = torch.from_numpy(idx)
+    for got, want in ((tc.pack_lanes_torch(t, k, 0), tc.pack_indices_2d(
+                          idx, k)),
+                      (tc.pack_lanes_torch(t, k, 1), tc.pack_rows(idx, k)),
+                      (tc.pack_lanes_torch(t.reshape(-1), k, 0),
+                       tc.pack_indices(idx, k)[0])):
+        assert got.dtype == torch.uint32
+        np.testing.assert_array_equal(got.view(torch.int32).numpy().view(
+            np.uint32), want)
+
+
 def test_accounting_and_paths_match_reference():
     for k in KS:
         assert tc.bits_per_index(k) == jc.bits_per_index(k)

@@ -16,9 +16,13 @@ from repro_torch.core import kvquant
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.blockwise_prefill_quant import \
     blockwise_prefill_quant
+from repro_torch.kernels.codebook_matmul import codebook_matmul
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
+from repro_torch.kernels.mla_paged_attention import mla_paged_attention
+from repro_torch.kernels.mla_paged_attention_quant import \
+    mla_paged_attention_quant
 from repro_torch.kernels.page_gather import page_gather
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_attention_quant import paged_attention_quant
@@ -32,6 +36,10 @@ PREFILL_CASES = {
                            window=4, softcap=5.0),
     "first-block": dict(b=2, c=6, h=2, kv=2, hd=8, s=6, start=0),
     "serving-block": dict(b=4, c=64, h=16, kv=16, hd=64, s=128, start=64),
+    # the deepseek-v2-lite MLA prefill: keys of nope 128 + rope 64, values
+    # of 128, over one slot's 9-page view
+    "mla-hd192-vd128": dict(b=1, c=64, h=16, kv=16, hd=192, vd=128, s=144,
+                            start=64),
 }
 
 
@@ -102,8 +110,8 @@ def test_cuda_blockwise_prefill(cuda, case):
                     device=cuda)
     k = torch.randn(p["b"], p["s"], p["kv"], p["hd"], generator=g,
                     device=cuda)
-    v = torch.randn(p["b"], p["s"], p["kv"], p["hd"], generator=g,
-                    device=cuda)
+    v = torch.randn(p["b"], p["s"], p["kv"], p.get("vd", p["hd"]),
+                    generator=g, device=cuda)
     q_pos = torch.arange(p["start"], p["start"] + p["c"], device=cuda)
     k_pos = torch.arange(p["s"], device=cuda)
     kw = dict(window=window, softcap=softcap, scale=p["hd"] ** -0.5)
@@ -116,12 +124,29 @@ def test_cuda_blockwise_prefill(cuda, case):
 
 
 @pytest.mark.cuda
-def test_cuda_uint8_route_raises(cuda):
-    x = torch.zeros(2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="row 11"):
-        dispatch.quantized_matmul(x, torch.zeros(8, 4, dtype=torch.uint8,
-                                                 device=cuda),
-                                  torch.zeros(4, device=cuda))
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("m,kd,n", [(3, 37, 70), (40, 300, 130),
+                                    (4, 1024, 2816), (5, 64, 99)])
+def test_cuda_codebook_matmul(cuda, k, m, kd, n):
+    """Kernel row 11 (uint8 indices) against its plain version: four-byte
+    index loads (N % 4 == 0) and one-byte ones, split-K at decode rows."""
+    g, cb, idx = _card_operands(k, kd, n, cuda, 3 * k + m)
+    idx = idx.to(torch.uint8)
+    x = torch.randn(m, kd, generator=g, device=cuda)
+    before = codebook_matmul.launches
+    got = codebook_matmul(x, idx, cb)
+    want = ref.codebook_matmul_ref(x, idx, cb)
+    torch.cuda.synchronize()
+    assert codebook_matmul.launches == before + 1
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    # the serving route: batched x, and a grouped (3-D) leaf decoded then
+    # multiplied outside the kernel
+    y = dispatch.quantized_matmul(x[None], idx, cb)
+    assert codebook_matmul.launches == before + 2
+    assert torch.equal(y[0], got)
+    y3 = dispatch.quantized_matmul(x[:, :kd // 2], idx[None, :kd // 2], cb)
+    assert codebook_matmul.launches == before + 2
+    assert y3.shape == (1, m, n)
 
 
 def _paged_operands(cuda, b, h, kv, hd, page, npg, seed, n_phys=None):
@@ -329,3 +354,101 @@ def test_cuda_quant_write_path_is_deterministic_and_attended(cuda, mode):
     torch.cuda.synchronize()
     _check_paged(got, ref.paged_attention_quant_ref(
         q, words, words, cbs, cbs, table, pos, alive, **kw_), alive)
+
+
+# ---------------------------------------------------------------------------
+# MLA paged decode over latent pages (kernel rows 8 and 9)
+# ---------------------------------------------------------------------------
+
+MLA_SHAPES = {
+    # a small odd shape: 3 heads, latent 40, rope 6, pages of 5
+    "odd": dict(h=3, lat=40, rd=6, page=5, npg=3),
+    # the deepseek-v2-lite serving decode: 16 heads, latent 512, rope 64,
+    # pages of 16, 9 logical pages per slot
+    "serving": dict(h=16, lat=512, rd=64, page=16, npg=9),
+}
+
+
+def _mla_case(cuda, h, lat, rd, page, npg, seed, b=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_phys = b * npg + 1
+    q_eff = torch.randn(b, 1, h, lat, generator=g, device=cuda)
+    q_rope = torch.randn(b, 1, h, rd, generator=g, device=cuda)
+    perm = torch.randperm(n_phys - 1, generator=g, device=cuda)[:b * npg] + 1
+    table = perm.reshape(b, npg).to(torch.int32)
+    cap = npg * page
+    pos = torch.tensor([0, page - 1, page, cap - 1, 5][:b],
+                       dtype=torch.int32, device=cuda)
+    alive = torch.tensor([True, True, True, True, False][:b], device=cuda)
+    return g, n_phys, q_eff, q_rope, table, pos, alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_cuda_mla_paged_attention(cuda, shape):
+    sh = MLA_SHAPES[shape]
+    g, n_phys, q_eff, q_rope, table, pos, alive = _mla_case(
+        cuda, **sh, seed=len(shape))
+    c_pool = torch.randn(n_phys, sh["page"], sh["lat"], generator=g,
+                         device=cuda)
+    r_pool = torch.randn(n_phys, sh["page"], sh["rd"], generator=g,
+                         device=cuda)
+    scale = (128 + 64) ** -0.5
+    before = mla_paged_attention.launches
+    got = mla_paged_attention(q_eff, q_rope, c_pool, r_pool, table, pos,
+                              alive, scale=scale)
+    torch.cuda.synchronize()
+    assert mla_paged_attention.launches == before + 1
+    _check_paged(got, ref.mla_paged_attention_ref(
+        q_eff, q_rope, c_pool, r_pool, table, pos, alive, scale=scale),
+        alive)
+    dead = torch.zeros_like(alive)
+    got = mla_paged_attention(q_eff, q_rope, c_pool, r_pool, table, pos,
+                              dead, scale=scale)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+@pytest.mark.parametrize("written", [True, False])
+def test_cuda_mla_paged_attention_quant(cuda, bits, shape, written):
+    """Row 9 against its plain version over latent word pools written by
+    the port's quantizing write path (one codebook per page) or random
+    words with sorted random codebooks."""
+    sh = MLA_SHAPES[shape]
+    g, n_phys, q_eff, q_rope, table, pos, alive = _mla_case(
+        cuda, **sh, seed=bits + len(shape))
+    cache = attn.init_quant_paged_mla_cache(n_phys - 1, sh["page"],
+                                            sh["lat"], sh["rd"], bits,
+                                            device=cuda)
+    if written:
+        every = torch.arange(1, n_phys, device=cuda)[None]
+        one = torch.ones(1, dtype=torch.bool, device=cuda)
+        for words, cbs, d in ((cache.c_words, cache.c_cb, sh["lat"]),
+                              (cache.r_words, cache.r_cb, sh["rd"])):
+            rows = 2 * torch.randn(1, (n_phys - 1) * sh["page"], 1, d,
+                                   generator=g, device=cuda)
+            attn._write_block_slot_quant(words.unsqueeze(-2), cbs, every, 0,
+                                         one, rows, sh["page"], bits, "page")
+    else:
+        for words in (cache.c_words, cache.r_words):
+            words.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, words.shape,
+                                      generator=g, device=cuda,
+                                      dtype=torch.int64).to(torch.int32))
+        for cbs in (cache.c_cb, cache.r_cb):
+            cbs.copy_(torch.sort(torch.randn(cbs.shape, generator=g,
+                                             device=cuda), dim=-1)[0])
+    kw = dict(bits=bits, kv_lora=sh["lat"], rope_dim=sh["rd"],
+              scale=(128 + 64) ** -0.5)
+    before = mla_paged_attention_quant.launches
+    got = mla_paged_attention_quant(q_eff, q_rope, *cache, table, pos, alive,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert mla_paged_attention_quant.launches == before + 1
+    _check_paged(got, ref.mla_paged_attention_quant_ref(
+        q_eff, q_rope, *cache, table, pos, alive, **kw), alive)
+    dead = torch.zeros_like(alive)
+    got = mla_paged_attention_quant(q_eff, q_rope, *cache, table, pos, dead,
+                                    **kw)
+    assert torch.equal(got, torch.zeros_like(got))
