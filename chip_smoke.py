@@ -15,14 +15,26 @@
    and over 2/4/8-bit latent pages; the two quantized-KV attention
    kernels for kv bits {2, 4, 8} x codebook mode {page, head}; quantized
    pools written by the port's quantizing write path or random words
-   with sorted codebooks), and times it (CUDA events, and device time
+   with sorted codebooks; the C step's k-means assignment at P = 2^20
+   and 2^23, K = 16, batched [24, 2^20], and K in {2, 4, 256} unsorted at
+   a ragged P; the fixed quantizers in every mode, C in {4, 7}, f32 and
+   bf16, at Theorem A.1's threshold inputs too), and times it (CUDA events, and device time
    from the profiler) beside the plain version, one PyTorch library call
    as a yardstick (none reads packed KV words: the quantized kernels
    stand beside their dense kernel at the same shape instead), and the
    least time the card could take (the larger of bytes / 3.35 TB/s and
    FLOPs / 67 TFLOP/s f32).
-3. Builds a random K=16 ``qwen1.5-0.5b`` artifact on the card from a seed
-   and saves it.  One-shot path at full width: serves it through
+3. C-step path at full width: compresses a random ``qwen1.5-0.5b`` (weights
+   from a seed) on the card by direct compression with
+   ``CompressionPlan.parse("adaptive:16")`` (k-means++ seeds, up to 50
+   Lloyd iterations through the ``kmeans_assign`` kernel), packs and saves
+   it, then DC with ``ternary`` and ``pow2:4`` through the ``fixed_quant``
+   kernel, each leaf held against the plain version on the card; the
+   counters zeroed before must show both kernels and no other.  Layer 0's
+   q and first MLP group are replayed on the CPU route from the card's
+   seeds (codebooks, words, distortion held).  The adaptive artifact is
+   what every later qwen phase serves.  One-shot path at full width:
+   serves it through
    ``repro_torch.launch.serve --packed DIR --no-engine --batch 4
    --prompt-len 128 --gen-len 16`` with the launch counters zeroed just
    before, checks that exactly the kernels of that path ran, and re-runs
@@ -1099,36 +1111,331 @@ def check_mla_paged_attention_quant(gen, dev, sh: Shapes) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Main-path phase
+# C-step kernels (rows 12 and 13) and the C-step path
 # ---------------------------------------------------------------------------
 
-def _flatten(tree, prefix=""):
-    """(reference keystr path, tensor) pairs of a params tree."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}['{k}']")
-    elif isinstance(tree, tuple):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}[{i}]")
-    else:
-        yield prefix, tree
+# Point counts of the C-step kernel phases: the shapes of
+# benchmarks/bench_cstep.py (2^20, 2^23), a stacked leaf of 24 layer groups,
+# and a P that is a multiple of no block size.
+CSTEP_P = (1 << 20, 1 << 23)
+CSTEP_GROUPS = 24
+CSTEP_ODD_P = 1_000_003
 
+
+def check_kmeans_assign(gen, dev, sh: Shapes) -> dict:
+    """Row 12 against its plain version: assignments and counts exact, sums
+    within 1e-5 of the largest |sum|, the same on a second run."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_assign import kmeans_assign
+    print("kmeans_assign (assignments and counts exact, sums within rel "
+          "1e-5):")
+    small, big = CSTEP_P
+    cases = [(f"P={p} K={K_MAIN}", (), p, K_MAIN, True) for p in CSTEP_P]
+    cases += [(f"[{CSTEP_GROUPS}, {small}] K={K_MAIN} batched",
+               (CSTEP_GROUPS,), small, K_MAIN, True)]
+    cases += [(f"P={CSTEP_ODD_P} K={k} unsorted", (), CSTEP_ODD_P, k, False)
+              for k in (2, 4, 256)]
+    errs = {}
+    for label, lead, p, k, ordered in cases:
+        w = torch.randn(lead + (p,), generator=gen, device=dev)
+        cb = torch.randn(lead + (k,), generator=gen, device=dev)
+        if ordered:
+            cb = torch.sort(cb, dim=-1).values
+        got = kmeans_assign(w, cb)
+        again = kmeans_assign(w, cb)
+        want = ref.kmeans_assign_ref(w, cb)
+        torch.cuda.synchronize()
+        compare(f"{label}: assign", got[0], want[0], exact=True)
+        compare(f"{label}: counts", got[2], want[2], exact=True)
+        errs[label] = compare(f"{label}: sums", got[1], want[1],
+                              rel_tol=1e-5)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise SmokeFailure(f"kmeans_assign {label}: two runs differ")
+    p, k = big, K_MAIN
+    nc = copies_for(p * 4)
+    ws = [torch.randn(p, generator=gen, device=dev) for _ in range(nc)]
+    cb = torch.sort(torch.randn(k, generator=gen, device=dev)).values
+    it = iter(range(10 ** 9))
+    times = time_all(lambda: kmeans_assign(ws[next(it) % nc], cb),
+                     lambda: ref.kmeans_assign_ref(ws[next(it) % nc], cb),
+                     None, plain_iters=10)
+    # w read, assign written, the codebook read, sums and counts written
+    b_ms, b_by = bound(p * 8 + 3 * k * 4, 3 * p * k)
+    out = dict(name="kmeans_assign", shape=f"P={p} K={k} f32",
+               max_abs_err=errs[f"P={p} K={k}"], bound_ms=b_ms,
+               bound_by=b_by, **times)
+    print(f"  timing {out}")
+    return out
+
+
+def ulps_from_pow2_threshold(t: torch.Tensor) -> torch.Tensor:
+    """Distance of |t| from the nearest pow2 threshold 1.5·2^-n, in ulps
+    (f32) of that threshold."""
+    a = t.double().abs()
+    n = torch.round(torch.log2(1.5 / a))
+    th = 1.5 * torch.exp2(-n)
+    ulp = torch.exp2(torch.floor(torch.log2(th)) - 23)
+    return (a - th).abs() / ulp
+
+
+def hold_fixed_quant(label: str, got: torch.Tensor, want: torch.Tensor,
+                     w: torch.Tensor, mode: str, scale: float = 1.0) -> int:
+    """Row 13's hold: bit for bit, except pow2 elements that flip where two
+    ``log2`` libraries may round to either side of an exponent threshold;
+    each flip is reported with its distance, and one farther than 2 ulps
+    from a threshold fails.  Returns the number of flips."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SmokeFailure(f"{label}: {got.dtype}{tuple(got.shape)} != "
+                           f"{want.dtype}{tuple(want.shape)}")
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    diff = got.view(bits) != want.view(bits)
+    n = int(diff.sum())
+    if n and mode != "pow2":
+        raise SmokeFailure(f"{label}: {n} elements differ from the plain "
+                           f"version")
+    if n:
+        t = (w.float() / scale)[diff]
+        dist = ulps_from_pow2_threshold(t)
+        print(f"  {label}: {n} pow2 flips at |t| = "
+              f"{t.abs()[:8].tolist()}, {dist.max().item():.2f} ulps from "
+              f"a threshold at most")
+        if dist.max().item() > 2:
+            raise SmokeFailure(f"{label}: a pow2 flip more than 2 ulps from "
+                               f"a threshold")
+    return n
+
+
+def check_fixed_quant(gen, dev, sh: Shapes) -> dict:
+    """Row 13 against its plain version, every mode, C in {4, 7}, f32 and
+    bf16, at 2^20, 2^23 and [8, 1000], and at Theorem A.1's special
+    inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fixed_quant import MODES, fixed_quant
+    print("fixed_quant (bit for bit; pow2 flips only at a threshold):")
+    n = torch.arange(0, 12, device=dev, dtype=torch.float32)
+    pw = torch.exp2(-n)
+    special = torch.cat([pw, 1.5 * pw, torch.nextafter(1.5 * pw, pw * 2),
+                         torch.nextafter(1.5 * pw, pw),
+                         torch.tensor([0.0, 1e-40, 3.0, 0.5], device=dev)])
+    special = torch.cat([special, -special])
+    flips = 0
+    for shape in ((CSTEP_P[0],), (CSTEP_P[1],), (8, 1000),
+                  tuple(special.shape)):
+        base = special if shape == tuple(special.shape) else \
+            torch.randn(shape, generator=gen, device=dev) * 0.2
+        for dtype in (torch.float32, torch.bfloat16):
+            w = base.to(dtype)
+            for mode in MODES:
+                for c in ((4, 7) if mode == "pow2" else (4,)):
+                    got = fixed_quant(w, mode, pow2_c=c)
+                    want = ref.fixed_quant_ref(w, mode, c)
+                    flips += hold_fixed_quant(
+                        f"{mode} C={c} {str(dtype)[6:]} {list(shape)}", got,
+                        want, w, mode)
+    torch.cuda.synchronize()
+    print(f"  all cases held; {flips} pow2 flips in all")
+    p = CSTEP_P[1]
+    nc = copies_for(p * 8)
+    ws = [torch.randn(p, generator=gen, device=dev) * 0.2 for _ in range(nc)]
+    it = iter(range(10 ** 9))
+    times = time_all(lambda: fixed_quant(ws[next(it) % nc], "pow2"),
+                     lambda: ref.fixed_quant_ref(ws[next(it) % nc], "pow2"),
+                     None)
+    b_ms, b_by = bound(p * 8, 10 * p)
+    out = dict(name="fixed_quant", shape=f"P={p} f32 pow2 C=4",
+               max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, pow2_flips=flips,
+               **times)
+    print(f"  timing {out}")
+    return out
+
+
+CSTEP_KERNELS = ("kmeans_assign", "fixed_quant")
+# layer 0's q projection and its MLP's first projection: the groups whose
+# card fit is held against the port's CPU route
+CSTEP_HELD = ("['stacks'][0]['pos0']['mixer']['wq']",
+              "['stacks'][0]['pos0']['mlp']['w_in']")
+
+
+def _leaves(tree) -> dict:
+    from repro_torch.core.lc import tree_items
+    return dict(tree_items(tree))
+
+
+def hold_cstep_group(path: str, params, theta0, state, pm, scheme) -> None:
+    """Layer 0's group of ``path``: the port's CPU route run from the card's
+    k-means++ seeds.  The card's codebook must lie within 1e-5 of max |c|
+    of the CPU's, its packed words must equal the CPU's midpoint
+    assignment of the group's weights against the card's codebook, and
+    its distortion must be at most the CPU's · (1 + 1e-5)."""
+    from repro_torch.core.compression import pack_indices
+    from repro_torch.core.quant_ops import fixed_codebook_assign
+    w = _leaves(params)[path][0].cpu()
+    seeds = theta0[path]["codebook"][0].cpu()
+    q_cpu, th_cpu = scheme.c_step(w, {"codebook": seeds,
+                                      "kmeans_iters": torch.tensor(0)},
+                                  first=True)
+    cb_card = state.theta[path]["codebook"][0].cpu()
+    iters_card = int(state.theta[path]["kmeans_iters"][0])
+    label = f"C step {path}[0]"
+    compare(f"{label}: card codebook vs CPU route from the same seeds",
+            cb_card, th_cpu["codebook"], rel_tol=1e-5)
+    words = pack_indices(fixed_codebook_assign(w.reshape(-1), cb_card)
+                         .numpy(), scheme.index_entries)[0]
+    if not np.array_equal(pm.packed[path].words[0], words):
+        raise SmokeFailure(f"{label}: packed words differ from the CPU's "
+                           f"assignment against the card's codebook")
+    q_card = _leaves(state.w_c)[path][0].cpu()
+    d_card = ((w.double() - q_card.double()) ** 2).sum().item()
+    d_cpu = ((w.double() - q_cpu.double()) ** 2).sum().item()
+    print(f"  {label}: iters card {iters_card} / CPU "
+          f"{int(th_cpu['kmeans_iters'])}, words equal, distortion card "
+          f"{d_card:.6e} vs CPU {d_cpu:.6e}")
+    if d_card > d_cpu * (1 + 1e-5):
+        raise SmokeFailure(f"{label}: the card's distortion exceeds the "
+                           f"CPU's")
+
+
+def hold_kmeans_assign_leaves(params, thetas: dict) -> None:
+    """Row 12 against its plain version at every shape the C step gives
+    it: one call per quantized leaf (its layer groups in one batched
+    launch; qwen's tied embedding is one group of 155.6 M points, with
+    centroids past 2^24 points) on each codebook of ``thetas`` (label →
+    {path: scheme state}).  Assignments and counts exact, sums within
+    1e-5 of the largest |sum|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_assign import kmeans_assign
+    leaves = _leaves(params)
+    most = 0
+    for which, theta in thetas.items():
+        for path, th in theta.items():
+            cb = th["codebook"]
+            cb = cb.reshape(-1, cb.shape[-1])
+            x = leaves[path].reshape(cb.shape[0], -1)
+            got = kmeans_assign(x, cb)
+            want = ref.kmeans_assign_ref(x, cb)
+            label = f"kmeans_assign {list(x.shape)} {path}, {which}"
+            compare(f"{label}: assign", got[0], want[0], exact=True)
+            compare(f"{label}: counts", got[2], want[2], exact=True)
+            compare(f"{label}: sums", got[1], want[1], rel_tol=1e-5)
+            most = max(most, int(want[2].max().item()))
+            del got, want
+    print(f"  every leaf held; the largest centroid holds {most} points "
+          f"(2^24 = {1 << 24})")
+
+
+def fixed_dc(spec: str, params, qspec) -> tuple:
+    """Direct compression of every quantized leaf with a fixed scheme on
+    the card, held element by element against the plain version on the
+    card, and packed once.  Returns (leaf count, packed MB, ratio)."""
+    from repro_torch.core.baselines import direct_compression
+    from repro_torch.core.lc import quant_leaf_paths
+    from repro_torch.core.plan import CompressionPlan
+    from repro_torch.kernels import ref
+    plan = CompressionPlan.parse(spec)
+    scheme = plan.scheme
+    w_dc, state = direct_compression(None, params, plan, qspec)
+    leaves, dc = _leaves(params), _leaves(w_dc)
+    flips = 0
+    for path in quant_leaf_paths(qspec):
+        want = ref.fixed_quant_ref(leaves[path], scheme.kind, scheme.pow2_c)
+        flips += hold_fixed_quant(f"DC {spec} {path}", dc[path], want,
+                                  leaves[path], scheme.kind)
+    pm = plan.pack(params, state, qspec)
+    s = pm.summary()
+    print(f"  DC {spec}: {len(pm.packed)} leaves held against the plain "
+          f"version ({flips} pow2 flips), packed {s['packed_bytes'] / 1e6:.1f}"
+          f" MB, eq.-14 ratio {s['ratio']:.3f}")
+    return len(pm.packed), s["packed_bytes"] / 1e6, s["ratio"]
+
+
+def cstep_path(card: str, cfg, dev, directory: str) -> dict:
+    """The paper's C step on the card at full width: direct compression of
+    a random ``cfg`` (weights from a seed, as ``build_artifact`` makes
+    them) with ``CompressionPlan.parse("adaptive:16")`` (k-means++ seeds,
+    50 first iterations), packed and saved to ``directory``: the artifact
+    every later qwen phase serves.  Then DC with ``ternary`` and
+    ``pow2:4``.  The launch counters are zeroed before and read after the
+    three; only the two C-step kernels may run."""
+    from repro_torch.core import lc
+    from repro_torch.core.baselines import direct_compression
+    from repro_torch.core.plan import CompressionPlan
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    plan = CompressionPlan.parse(f"adaptive:{K_MAIN}")
+    qspec = plan.build_qspec(params)
+    p1, p0 = lc.param_counts(params, qspec)
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # direct_compression seeds with lc.init_theta when given no theta0; the
+    # seeds are taken here to replay two groups on the CPU
+    theta0 = lc.init_theta(gen, params, plan, qspec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, state = direct_compression(None, params, plan, qspec, theta0=theta0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pm = plan.pack(params, state, qspec)
+    t3 = time.perf_counter()
+    pm.save(directory)
+    t4 = time.perf_counter()
+    fixed = {spec: fixed_dc(spec, params, qspec)
+             for spec in ("ternary", "pow2:4")}
+    counts = dispatch.launch_counts()
+    check_launched("C step (DC adaptive:16, ternary, pow2:4)", counts,
+                   CSTEP_KERNELS)
+    iters = {p: th["kmeans_iters"].tolist()
+             for p, th in state.theta.items()}
+    s = pm.summary()
+    c_ms = 1e3 * (t2 - t0)
+    print(f"C step on {card}: DC adaptive:{K_MAIN} of {len(iters)} leaves, "
+          f"{p1} weights quantized ({p0} kept dense): seeding "
+          f"{1e3 * (t1 - t0):.1f} ms + fits {1e3 * (t2 - t1):.1f} ms = "
+          f"{c_ms:.1f} ms wall, {p1 / c_ms / 1e3:.1f} Mweights/s; pack "
+          f"{1e3 * (t3 - t2):.1f} ms, save {1e3 * (t4 - t3):.1f} ms")
+    for p, n in iters.items():
+        print(f"  iters_run {p}: {n}")
+    print(f"  packed {s['packed_bytes'] / 1e6:.1f} MB vs "
+          f"{s['ref_bytes'] / 1e6:.1f} MB f32, eq.-14 ratio "
+          f"{s['ratio']:.3f} (b = {s['bits_per_weight']} bits per index)")
+    profile_window(f"C step fits (DC adaptive:{K_MAIN}, the same seeds)",
+                   lambda: direct_compression(None, params, plan, qspec,
+                                              theta0=theta0), card)
+    for path in CSTEP_HELD:
+        hold_cstep_group(path, params, theta0, state, pm, plan.scheme)
+    t5 = time.perf_counter()
+    hold_kmeans_assign_leaves(params, {"k-means++ seeds": theta0,
+                                       "fitted codebooks": state.theta})
+    torch.cuda.synchronize()
+    print(f"  row 12 held on every leaf in {time.perf_counter() - t5:.1f} s")
+    del params, state, theta0
+    torch.cuda.empty_cache()
+    return dict(counts=counts, c_step_ms=c_ms, iters=iters, pm=pm,
+                fixed=fixed, mweights_per_s=p1 / c_ms / 1e3)
+
+
+# ---------------------------------------------------------------------------
+# Main-path phase
+# ---------------------------------------------------------------------------
 
 def build_artifact(cfg, k: int, seed: int, directory: str, dev):
     """Random K-entry artifact of ``cfg``, built on the card: per eligible
     leaf (per layer group for stacked leaves) the codebook is the K
     quantiles of a fixed random subsample and the assignment is a
     bucketize against the codebook midpoints, packed on the card.  Smoke
-    scaffolding, not the LC algorithm (``CompressionPlan`` is ROADMAP.md
-    module 13)."""
+    scaffolding for deepseek, whose DC on the card is ROADMAP.md queue 1
+    item 2; qwen's artifact comes from the C step (``cstep_path``)."""
     from repro_torch.core.compression import (DEFAULT_EXCLUDE, PackedLeaf,
                                               PackedModel, pack_lanes_torch)
+    from repro_torch.core.lc import tree_items
     from repro_torch.models.transformer import init_params
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, gen, device=dev)
     levels = (torch.arange(k, device=dev, dtype=torch.float32) + 0.5) / k
     packed, dense, entries = {}, {}, 0
-    for path, leaf in _flatten(params):
+    for path, leaf in tree_items(params):
         grouped = path.startswith("['stacks']")
         groups = leaf if grouped else leaf[None]
         if groups[0].ndim < 2 or DEFAULT_EXCLUDE.search(path):
@@ -2035,6 +2342,8 @@ REPLACES = {
     "codebook_matmul": "src/repro/kernels/codebook_matmul.py:57",
     "mla_paged_attention": "src/repro/kernels/paged_attention.py:353",
     "mla_paged_attention_quant": "src/repro/kernels/paged_attention.py:401",
+    "kmeans_assign": "src/repro/kernels/kmeans_assign.py:53",
+    "fixed_quant": "src/repro/kernels/fixed_quant.py:47",
 }
 
 # The path whose run gives each kernel's "launches": the path of the slice
@@ -2043,7 +2352,8 @@ MAIN_PATH_OF = {"blockwise_prefill_quant": "quant_engine",
                 "paged_attention_quant": "quant_engine",
                 "codebook_matmul": "uint8_oneshot",
                 "mla_paged_attention": "deepseek_engine",
-                "mla_paged_attention_quant": "deepseek_quant_engine"}
+                "mla_paged_attention_quant": "deepseek_quant_engine",
+                "kmeans_assign": "cstep", "fixed_quant": "cstep"}
 
 
 def run() -> int:
@@ -2082,36 +2392,46 @@ def run() -> int:
           f"{sh_ds.cfg.n_layers} layers (the dense layer + 2 MoE layers: "
           f"reduce_config's depth rule) to bound the CPU replay and the "
           f"card's time")
-    results = [check(gen, dev, sh) for check in
+    phase_s = {}
+
+    def timed(label, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[label] = time.perf_counter() - t
+        print(f"phase {label}: {phase_s[label]:.1f} s")
+        return out
+
+    results = [timed(check.__name__, check, gen, dev, sh) for check in
                (check_gather, check_matmul, check_matmul_t, check_prefill,
                 check_page_gather, check_paged_attention,
                 check_prefill_quant, check_paged_attention_quant,
-                check_codebook_matmul)]
-    results += [check(gen, dev, sh_ds) for check in
+                check_codebook_matmul, check_kmeans_assign,
+                check_fixed_quant)]
+    results += [timed(check.__name__, check, gen, dev, sh_ds) for check in
                 (check_mla_paged_attention, check_mla_paged_attention_quant)]
     with tempfile.TemporaryDirectory() as tmp:
         qwen_dir, ds_dir = os.path.join(tmp, "qwen"), os.path.join(tmp, "ds")
-        t0 = time.perf_counter()
-        pm = build_artifact(sh.cfg, K_MAIN, seed=0, directory=qwen_dir,
-                            dev=dev)
+        paths = {"cstep": timed("cstep", cstep_path, card, sh.cfg, dev,
+                                qwen_dir)}
+        pm = paths["cstep"].pop("pm")
         s = pm.summary()
-        print(f"artifact: {len(pm.packed)} packed leaves, "
+        print(f"artifact (the C step's): {len(pm.packed)} packed leaves, "
               f"{s['packed_bytes'] / 1e6:.1f} MB packed vs "
-              f"{s['ref_bytes'] / 1e6:.1f} MB f32, built and saved in "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"{s['ref_bytes'] / 1e6:.1f} MB f32")
+        del pm
         params_cpu = PackedModel.load(qwen_dir).decode()
-        paths = {}
-        paths["oneshot"] = main_path(card, sh, dev, qwen_dir, params_cpu)
-        paths["uint8_oneshot"] = main_path(
-            card, sh, dev, qwen_dir, params_cpu, layout="uint8",
-            kernels=UINT8_ONESHOT_KERNELS, reuse=paths["oneshot"],
-            profile=False)
-        paths["dense_engine"] = engine_path(card, sh, dev, qwen_dir,
-                                            params_cpu)
-        paths["quant_engine"] = quant_engine_path(card, sh, dev, qwen_dir,
-                                                  params_cpu)
+        paths["oneshot"] = timed("oneshot", main_path, card, sh, dev,
+                                 qwen_dir, params_cpu)
+        paths["uint8_oneshot"] = timed(
+            "uint8_oneshot", main_path, card, sh, dev, qwen_dir, params_cpu,
+            layout="uint8", kernels=UINT8_ONESHOT_KERNELS,
+            reuse=paths["oneshot"], profile=False)
+        paths["dense_engine"] = timed("dense_engine", engine_path, card, sh,
+                                      dev, qwen_dir, params_cpu)
+        paths["quant_engine"] = timed("quant_engine", quant_engine_path,
+                                      card, sh, dev, qwen_dir, params_cpu)
         del params_cpu
-        ds = deepseek_paths(card, dev, ds_dir, sh_ds)
+        ds = timed("deepseek", deepseek_paths, card, dev, ds_dir, sh_ds)
         paths["deepseek_oneshot"] = ds["oneshot"]
         paths["deepseek_engine"] = ds["dense"]
         paths["deepseek_quant_engine"] = ds["quant"]
@@ -2124,13 +2444,15 @@ def run() -> int:
         for label, t in ((r["name"], r), ("  same kernel", r.get("prefill"))):
             if t is None:
                 continue
-            beside = (f"library {fmt(t['library_ms'])}"
-                      if t["library_ms"] is not None
-                      else f"library none; dense kernel at the same shape "
-                           f"{fmt(t['dense_ms'])}")
-            dev_beside = (f"library {fmt(t['device_library_ms'])}"
-                          if t["library_ms"] is not None
-                          else f"dense {fmt(t['device_dense_ms'])}")
+            if t["library_ms"] is not None:
+                beside = f"library {fmt(t['library_ms'])}"
+                dev_beside = f"library {fmt(t['device_library_ms'])}"
+            elif "dense_ms" in t:
+                beside = (f"library none; dense kernel at the same shape "
+                          f"{fmt(t['dense_ms'])}")
+                dev_beside = f"dense {fmt(t['device_dense_ms'])}"
+            else:
+                beside = dev_beside = "library none"
             print(f"{label} at {t['shape']} on {card}: {t['ms']:.4f} ms per "
                   f"call (plain {t['plain_ms']:.4f} ms, {beside}); device "
                   f"time {fmt(t['device_ms'])} (plain "

@@ -14,5 +14,9 @@ accounting of ``core.kvquant``; the six serving kernels
 ``paged_attention``); the dense GQA + gated-MLP model with its paged
 entry points; the continuous-batching engine over dense KV pages with
 greedy sampling (``engine``), its one-shot oracle (``engine.oneshot``),
-and ``launch.serve`` in both modes.
+and ``launch.serve`` in both modes; the quantized KV cache, MLA + MoE and
+the uint8 layout; and the paper's C step (``core.quant_ops``,
+``core.kmeans``, ``core.schemes``, ``core.lc``, ``core.baselines``,
+``core.plan``, ``PackedModel.pack``) with the ``kmeans_assign`` and
+``fixed_quant`` kernels.
 """

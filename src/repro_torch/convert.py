@@ -1,6 +1,7 @@
 """Trees of tensors: a ``tree_map`` over the port's params / cache trees,
 and :func:`from_numpy_tree`, which carries a reference params or
-serving-params tree (after ``np.asarray`` on each leaf) into the port.
+serving-params tree, or an ``LCState`` (w_c, λ, Θ per path, μ, lc_iter),
+after ``np.asarray`` on each leaf, into the port.
 
 A tree is nested dicts, tuples, lists and NamedTuples; its leaves are
 tensors (arrays) or static metadata such as a ``PackedLayout``, which
@@ -44,7 +45,7 @@ def tree_leaves(tree) -> list:
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":          # ml_dtypes' numpy bfloat16
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
+        t = torch.from_numpy(np.array(arr, copy=True).view(np.uint16))
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
@@ -52,8 +53,8 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 def from_numpy_tree(tree, device=None):
     """Reference tree (numpy leaves) → port tree (torch leaves on
     ``device``).  A reference ``PackedLayout`` becomes the port's by its
-    fields (duck-typed); a reference ``KVCache`` becomes the port's;
-    other NamedTuples become plain tuples."""
+    fields (duck-typed); a reference ``KVCache`` or ``LCState`` becomes the
+    port's; other NamedTuples become plain tuples."""
     if isinstance(tree, (np.ndarray, np.generic)):
         return _to_tensor(np.asarray(tree), device)
     if isinstance(tree, dict):
@@ -65,6 +66,10 @@ def from_numpy_tree(tree, device=None):
         if type(tree).__name__ == "KVCache" and tree._fields == ("k", "v"):
             from repro_torch.models.attention import KVCache
             return KVCache(*children)
+        if type(tree).__name__ == "LCState":
+            from repro_torch.core.lc import LCState
+            if tree._fields == LCState._fields:
+                return LCState(*children)
         return tuple(children)
     if isinstance(tree, (tuple, list)):
         return type(tree)(from_numpy_tree(v, device) for v in tree)

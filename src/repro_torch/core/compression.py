@@ -229,6 +229,16 @@ class PackedLayout:
         return (self.kd, -(-self.n // self.lanes))
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 becomes ``ml_dtypes``'
+    bfloat16 (numpy has no bf16 of its own), as the reference stores it."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """Reference dtype string ("float32", "bfloat16", ...) → torch dtype."""
     dt = getattr(torch, str(name), None)
@@ -338,13 +348,10 @@ class PackedLeaf:
 
 @dataclasses.dataclass
 class PackedModel:
-    """Deployable quantized-model artifact (load/save → serve).
+    """Deployable quantized-model artifact (pack → save/load → serve).
 
     ``packed``: keystr path → PackedLeaf for every quantized leaf;
-    ``dense``: keystr path → raw array for everything else.  Packing a
-    finished LC run (``PackedModel.pack``) is not ported yet (ROADMAP
-    module 13); artifacts come from the reference or from
-    :meth:`save` of a model built elsewhere.
+    ``dense``: keystr path → raw array for everything else.
     """
 
     packed: Dict[str, PackedLeaf]
@@ -357,10 +364,51 @@ class PackedModel:
     GATHER_NAMES: Tuple[str, ...] = ("embed_tok",)
 
     @classmethod
-    def pack(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "PackedModel.pack (CompressionPlan / LC finalize) is not ported "
-            "yet: ROADMAP.md module 13 (LC training)")
+    def pack(cls, params: PyTree, state, plan, qspec: Optional[PyTree] = None,
+             bits_ref: int = 32) -> "PackedModel":
+        """Pack a finished LC run: ``state`` is the LCState whose Θ defines
+        the codebooks; ``plan`` a CompressionPlan (or bare Scheme).  The
+        assignments and the words are computed on the tensors' device
+        (``pack_lanes_torch``: the bits of the reference's
+        ``pack_indices``); the artifact's arrays are numpy."""
+        from repro_torch.core import lc as lc_mod
+        from repro_torch.core.schemes import as_scheme
+
+        scheme = as_scheme(plan)
+        if qspec is None:
+            qspec = (plan.build_qspec(params) if hasattr(plan, "build_qspec")
+                     else lc_mod.default_qspec(params))
+        w_c = lc_mod.finalize(params, state, qspec)
+        grouped = lc_mod._grouped_lookup(qspec)
+        quant_paths = set(lc_mod.quant_leaf_paths(qspec))
+        k = scheme.index_entries
+
+        packed: Dict[str, PackedLeaf] = {}
+        dense: Dict[str, np.ndarray] = {}
+        for ks, leaf in lc_mod.tree_items(w_c):
+            if ks not in quant_paths:
+                dense[ks] = _numpy(leaf)
+                continue
+            th = state.theta[ks]
+            g = grouped[ks]
+            assign = scheme.assignments(leaf, th, grouped=g)
+            entries = torch.arange(k, device=leaf.device)
+            if g:
+                assign = assign.reshape(leaf.shape[0], -1)
+                entries = entries.expand(leaf.shape[0], k)
+                words = pack_lanes_torch(assign, k, 1)
+            else:
+                words = pack_lanes_torch(assign.reshape(-1), k, 0)
+            cb = scheme.decode(entries, th, grouped=g)
+            packed[ks] = PackedLeaf(
+                words=words.view(torch.int32).cpu().numpy().view(np.uint32),
+                codebook=cb.float().cpu().numpy(),
+                shape=tuple(leaf.shape), k=k,
+                dtype=str(leaf.dtype).replace("torch.", ""))
+        return cls(packed=packed, dense=dense, scheme_spec=scheme.spec, k=k,
+                   codebook_entries=lc_mod.codebook_entry_count(state,
+                                                                scheme),
+                   bits_ref=bits_ref)
 
     # -- consumption --------------------------------------------------------
 

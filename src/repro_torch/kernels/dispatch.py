@@ -33,6 +33,8 @@ from repro_torch.kernels.codebook_matmul import codebook_matmul
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
+from repro_torch.kernels.fixed_quant import fixed_quant
+from repro_torch.kernels.kmeans_assign import kmeans_assign
 # the page gather needs no routing of its own: the per-slot view of any
 # pool dtype, dead slots masked to the trash page
 from repro_torch.kernels.mla_paged_attention import \
@@ -61,6 +63,8 @@ KERNELS = {
     "codebook_matmul": codebook_matmul,
     "mla_paged_attention": _mla_paged_attention,
     "mla_paged_attention_quant": _mla_paged_attention_quant,
+    "kmeans_assign": kmeans_assign,
+    "fixed_quant": fixed_quant,
 }
 
 

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quant_ops
 from repro_torch.core.compression import unpack_indices_2d, unpack_rows
 
 NEG_INF = -1e30
@@ -64,6 +65,73 @@ def quantized_gather_ref(tokens: torch.Tensor, pidx: torch.Tensor,
     words = pidx.view(torch.int32)[tokens.long()]    # [..., ⌈d/lanes⌉]
     idx = unpack_rows(words, d, codebook.shape[0])
     return codebook[idx]
+
+
+def segment_stats(x: torch.Tensor, assign: torch.Tensor, k: int):
+    """Per-row centroid sums and counts as ``kmeans_assign`` keeps them:
+    x [G, N] float, assign [G, N] in [0, k) → (sums, counts) [G, k] in
+    ``x``'s dtype.  Sums add in f64 and round once (an f32 running sum of
+    2^16 points is off by ~1e-5 of the sum, the jnp oracle's
+    ``segment_sum`` included); counts are integers converted at the end
+    (exact up to 2^24 per centroid in f32, correctly rounded above, where
+    an f32 running count would stall)."""
+    g = x.shape[0]
+    seg = (assign + k * torch.arange(g, device=x.device)[:, None]).reshape(-1)
+    sums = torch.zeros(g * k, dtype=torch.float64, device=x.device
+                       ).index_add_(0, seg, x.reshape(-1).double())
+    counts = torch.bincount(seg, minlength=g * k)
+    return (sums.reshape(g, k).to(x.dtype),
+            counts.reshape(g, k).to(x.dtype))
+
+
+# distance entries per chunk of kmeans_assign_ref's argmin (1 GiB of f32):
+# qwen's embedding at K = 16 would need 10 GB at once
+_ASSIGN_CHUNK = 1 << 28
+
+
+def kmeans_assign_ref(w: torch.Tensor, codebook: torch.Tensor):
+    """Plain version of ``kmeans_assign``: w [P] or [G, P], codebook [K]
+    or [G, K] (need not be sorted) → (assign int32, sums f32, counts f32).
+
+    ``assign`` is the argmin of (w - c_k)² in f32 with ties to the lower
+    index, taken over chunks of points; sums and counts are
+    :func:`segment_stats`, as the kernel's second pass keeps them."""
+    x = w.float()
+    c = codebook.float()
+    batched = x.ndim == 2
+    if not batched:
+        x, c = x[None], c[None]
+    g, p = x.shape
+    k = c.shape[-1]
+    step = max(1, _ASSIGN_CHUNK // max(1, g * k))
+    assign = torch.cat([
+        torch.argmin((x[:, i:i + step, None] - c[:, None, :]) ** 2, dim=-1)
+        for i in range(0, p, step)], dim=1) if p else \
+        torch.zeros((g, 0), dtype=torch.int64, device=x.device)
+    sums, counts = segment_stats(x, assign, k)
+    assign = assign.to(torch.int32)
+    if not batched:
+        return assign[0], sums[0], counts[0]
+    return assign, sums, counts
+
+
+FIXED_QUANT_MODES = ("binary", "ternary", "pow2")
+
+
+def fixed_quant_ref(w: torch.Tensor, mode: str, pow2_c: int = 4,
+                    scale: float = 1.0) -> torch.Tensor:
+    """Plain version of ``fixed_quant``: ``scale · Q(w / scale)`` in f32
+    through ``core.quant_ops``, back in ``w``'s dtype."""
+    ws = w.float() / scale
+    if mode == "binary":
+        q = quant_ops.binarize(ws)
+    elif mode == "ternary":
+        q = quant_ops.ternarize(ws)
+    elif mode == "pow2":
+        q = quant_ops.pow2_quantize(ws, pow2_c)
+    else:
+        raise ValueError(f"mode={mode!r}; choose one of {FIXED_QUANT_MODES}")
+    return (q * scale).to(w.dtype)
 
 
 def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

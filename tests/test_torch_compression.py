@@ -212,8 +212,11 @@ def test_artifacts_cross_between_packages(tmp_path):
 
 
 def test_pack_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.PackedModel.pack(None, None, None)
+    """``PackedModel.pack`` is ported; the sharded C step that a plan can
+    ask for (ROADMAP.md module 14) is not, and refuses by name."""
+    from repro_torch.core.plan import CompressionPlan
+    with pytest.raises(NotImplementedError, match="ROADMAP.md module 14"):
+        CompressionPlan.parse("adaptive:4", sharded_c_step=True)
 
 
 def test_packed_leaf_indices_decode_torch_types():

@@ -20,6 +20,8 @@ from repro_torch.kernels.codebook_matmul import codebook_matmul
 from repro_torch.kernels.codebook_matmul_packed import codebook_matmul_packed
 from repro_torch.kernels.codebook_matmul_packed_t import \
     codebook_matmul_packed_t
+from repro_torch.kernels.fixed_quant import fixed_quant
+from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.mla_paged_attention import mla_paged_attention
 from repro_torch.kernels.mla_paged_attention_quant import \
     mla_paged_attention_quant
@@ -452,3 +454,48 @@ def test_cuda_mla_paged_attention_quant(cuda, bits, shape, written):
     got = mla_paged_attention_quant(q_eff, q_rope, *cache, table, pos, dead,
                                     **kw)
     assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,p,k", [(0, 5000, 2), (0, 70001, 16),
+                                   (0, 4099, 256), (3, 9999, 4),
+                                   (2, 1 << 20, 16)])
+def test_cuda_kmeans_assign(cuda, g, p, k):
+    gen = torch.Generator(device=cuda).manual_seed(p + k)
+    shape = (g, p) if g else (p,)
+    w = torch.randn(shape, generator=gen, device=cuda)
+    cb = torch.randn(shape[:-1] + (k,), generator=gen, device=cuda)
+    cb[..., -1] = cb[..., 0]               # a tie: the lower index wins
+    n0 = kmeans_assign.launches
+    assign, sums, counts = kmeans_assign(w, cb)
+    torch.cuda.synchronize()
+    assert kmeans_assign.launches == n0 + 1
+    want = ref.kmeans_assign_ref(w, cb)
+    assert torch.equal(assign, want[0])
+    assert torch.equal(counts, want[2])
+    scale = want[1].abs().max().item()
+    assert (sums - want[1]).abs().max().item() <= 1e-5 * scale
+    again = kmeans_assign(w, cb)
+    assert all(torch.equal(a, b) for a, b in zip(again, (assign, sums,
+                                                         counts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["binary", "ternary", "pow2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fixed_quant(cuda, mode, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = (torch.randn(8, 1000, generator=gen, device=cuda) * 0.3).to(dtype)
+    n = torch.arange(0, 12, device=cuda, dtype=torch.float32)
+    special = torch.cat([torch.exp2(-n), 1.5 * torch.exp2(-n),
+                         torch.tensor([0.0, -0.0, 1e-40, -1e-40, 0.5],
+                                      device=cuda)]).to(dtype)
+    for c, scale in ((4, 1.0), (7, 1.0), (4, 0.37)):
+        for x in (w, special):
+            got = fixed_quant(x, mode, pow2_c=c, scale=scale)
+            want = ref.fixed_quant_ref(x, mode, c, scale)
+            assert got.dtype == dtype and got.shape == x.shape
+            assert torch.equal(got.view(torch.int16) if dtype ==
+                               torch.bfloat16 else got.view(torch.int32),
+                               want.view(torch.int16) if dtype ==
+                               torch.bfloat16 else want.view(torch.int32))
