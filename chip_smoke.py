@@ -10,7 +10,8 @@
    small ragged shapes and at the serving paths' shapes (the packed and
    uint8 codebook matmuls for K in {2, 4, 16, 256}; the page gather, the
    paged decode attention and the blockwise prefill, MLA's hd 192 / vd
-   128 included, for several head groupings, head dims, page sizes,
+   128 and the engine's one-slot view included, for several head
+   groupings, head dims, page sizes,
    softcaps, positions and dead slots; the MLA paged decode over dense
    and over 2/4/8-bit latent pages; the two quantized-KV attention
    kernels for kv bits {2, 4, 8} x codebook mode {page, head}; quantized
@@ -19,7 +20,9 @@
    and 2^23, K = 16, batched [24, 2^20], and K in {2, 4, 256} unsorted at
    a ragged P; the fixed quantizers in every mode, C in {4, 7}, f32 and
    bf16, at Theorem A.1's threshold inputs too), and times it (CUDA events, and device time
-   from the profiler) beside the plain version, one PyTorch library call
+   from the profiler, with the mean of a second pass in mirrored order
+   beside it; the prefill also at the engine's shape) beside the plain version, one
+   PyTorch library call
    as a yardstick (none reads packed KV words: the quantized kernels
    stand beside their dense kernel at the same shape instead), and the
    least time the card could take (the larger of bytes / 3.35 TB/s and
@@ -74,6 +77,7 @@
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -190,7 +194,11 @@ def time_all(kernel, plain, library, plain_iters: int = 30,
     """Event times (per call, launches back to back) and device times of a
     kernel wrapper, its plain version, the library yardstick (None where
     no PyTorch call computes the function) and any ``others`` (timed as
-    ``<name>_ms``)."""
+    ``<name>_ms``).  ``device_<key>`` is one profiler pass taken right
+    after each function's event timing, in that order (kernel first);
+    ``mirrored_device_<key>`` is its mean with a second pass in the
+    reverse order (kernel last), printed beside it so that a clock that
+    drifts during the phase shows."""
     out = {}
     fns = [("ms", kernel, 30), ("plain_ms", plain, plain_iters),
            ("library_ms", library, 30)]
@@ -198,9 +206,17 @@ def time_all(kernel, plain, library, plain_iters: int = 30,
     for key, fn, iters in fns:
         if fn is None:
             out[key] = out["device_" + key] = None
+            out["mirrored_device_" + key] = None
             continue
         out[key] = cuda_ms(fn, iters=iters)
         out["device_" + key] = device_ms(fn, iters=min(iters, 20))
+    for key, fn, iters in fns[::-1]:
+        if fn is None:
+            continue
+        first, again = out["device_" + key], device_ms(fn,
+                                                       iters=min(iters, 20))
+        out["mirrored_device_" + key] = (None if None in (first, again)
+                                         else (first + again) / 2)
     return out
 
 
@@ -373,7 +389,7 @@ def check_matmul_t(gen, dev, sh: Shapes) -> dict:
 
 
 def check_prefill(gen, dev, sh: Shapes) -> dict:
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels.blockwise_prefill import blockwise_prefill
     print("blockwise_prefill:")
 
@@ -404,34 +420,72 @@ def check_prefill(gen, dev, sh: Shapes) -> dict:
                                              None, None, 64, 128),
     }
     for start in range(0, sh.prompt_len, sh.block):
-        cases[f"serving block at {start}"] = (
-            sh.batch, sh.block, sh.h, sh.kv, sh.hd, start + sh.block, start)
-    err = None
+        last = f"serving block at {start}"
+        cases[last] = (sh.batch, sh.block, sh.h, sh.kv, sh.hd,
+                       start + sh.block, start)
+    # the engine's prefill: one slot's block over the slot's whole page view
+    # (npg pages, padded to a tile multiple); later tiles are never visible
+    engine = {f"engine view {sh.npg * sh.page} rows, block at {start}":
+              (1, sh.block, sh.h, sh.kv, sh.hd, sh.npg * sh.page, start)
+              for start in (0, sh.block)}
+    cases.update(engine)
+    # launch plans (query rows a warp, K/V buffers) that only these reach
+    plans = {**{label: (1, 2) for label in engine},
+             "MLA hd 192 / vd 128, tile 128: one K/V buffer": (1, 1),
+             "B=2 block of 64: 2 rows a warp": (2, 2)}
+    cases["MLA hd 192 / vd 128, tile 128: one K/V buffer"] = (
+        1, 64, 16, 16, 192, 144, 64, None, None, 128, 128)
+    cases["B=2 block of 64: 2 rows a warp"] = (2, 64, 16, 16, 64, 64, 0)
+    grid = build.function("blockwise_prefill",
+                          "repro_blockwise_prefill_grid",
+                          [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {}
     for label, args in cases.items():
         q, k, v, qp, kp, kw = case(*args)
+        if label in plans:
+            out = [ctypes.c_int() for _ in range(4)]
+            build.check(grid(*q.shape[:3], k.shape[2], k.shape[1], q.shape[3],
+                             v.shape[3], kw["token_tile"],
+                             *(ctypes.byref(x) for x in out)),
+                        "blockwise_prefill")
+            blocks, warps, rw, stages = (x.value for x in out)
+            print(f"  {label}: plan of {blocks} blocks of {warps} warps, "
+                  f"{rw} query rows a warp, {stages} K/V buffers "
+                  f"({n_sm} SMs)")
+            if (rw, stages) != plans[label]:
+                raise SmokeFailure(f"blockwise_prefill {label}: plan "
+                                   f"{(rw, stages)} != {plans[label]}")
         got = blockwise_prefill(q, k, v, qp, kp, **kw)
         torch.cuda.synchronize()
-        err = compare(label, got, ref.blockwise_prefill_ref(q, k, v, qp, kp,
-                                                            **kw))
-    # timing at the serving path's last prompt block
-    q, k, v, qp, kp, kw = case(*cases[f"serving block at {start}"])
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    mask = kp[None, :] <= qp[:, None]
-    times = time_all(
-        lambda: blockwise_prefill(q, k, v, qp, kp, **kw),
-        lambda: ref.blockwise_prefill_ref(q, k, v, qp, kp, **kw),
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=kw["scale"]))
-    b, c, h, hd = q.shape
-    vd = v.shape[-1]
-    visible = int(mask.sum().item())        # (query, key) pairs the data needs
-    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * c * h * vd
-                  + qp.numel() + kp.numel())
-    b_ms, b_by = bound(nbytes, 2 * b * h * visible * (hd + vd))
-    return dict(name="blockwise_prefill",
-                shape=f"B={b} C={c} H={h} KV={sh.kv} hd={hd} "
-                      f"S={k.shape[1]} tile={kw['token_tile']}",
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+        errs[label] = compare(label, got, ref.blockwise_prefill_ref(
+            q, k, v, qp, kp, **kw))
+
+    def timing(label: str) -> dict:
+        q, k, v, qp, kp, kw = case(*cases[label])
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = kp[None, :] <= qp[:, None]
+        times = time_all(
+            lambda: blockwise_prefill(q, k, v, qp, kp, **kw),
+            lambda: ref.blockwise_prefill_ref(q, k, v, qp, kp, **kw),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"]))
+        b, c, h, hd = q.shape
+        vd = v.shape[-1]
+        visible = int(mask.sum().item())    # (query, key) pairs the data needs
+        rows = int(mask.any(0).sum().item())   # view rows some query sees
+        nbytes = 4 * (q.numel() + b * rows * k.shape[2] * (hd + vd)
+                      + b * c * h * vd + qp.numel() + kp.numel())
+        b_ms, b_by = bound(nbytes, 2 * b * h * visible * (hd + vd))
+        return dict(shape=f"B={b} C={c} H={h} KV={k.shape[2]} hd={hd} "
+                          f"S={k.shape[1]} tile={kw['token_tile']} "
+                          f"start={int(qp[0])}",
+                    max_abs_err=errs[label], bound_ms=b_ms, bound_by=b_by,
+                    **times)
+
+    # timing at the serving path's last prompt block, then at the engine's
+    return dict(name="blockwise_prefill", **timing(last),
+                prefill=[timing(label) for label in engine])
 
 
 def paged_operands(gen, dev, b: int, rep: int, kv: int, hd: int, page: int,
@@ -2438,10 +2492,13 @@ def run() -> int:
 
     kernels = []
     def fmt(ms):
-        return "not measured" if ms is None else f"{ms:.4f} ms"
+        return "not measured" if ms is None else f"{ms:.6f} ms"
 
     for r in results:
-        for label, t in ((r["name"], r), ("  same kernel", r.get("prefill"))):
+        also = r.get("prefill")
+        also = also if isinstance(also, list) else [also]
+        for label, t in [(r["name"], r)] + [("  same kernel", a)
+                                            for a in also]:
             if t is None:
                 continue
             if t["library_ms"] is not None:
@@ -2453,10 +2510,15 @@ def run() -> int:
                 dev_beside = f"dense {fmt(t['device_dense_ms'])}"
             else:
                 beside = dev_beside = "library none"
+            mirrored = ", ".join(
+                f"{key} {fmt(t.get('mirrored_device_' + key))}"
+                for key in ("ms", "plain_ms", "library_ms", "dense_ms")
+                if t.get("device_" + key) is not None)
             print(f"{label} at {t['shape']} on {card}: {t['ms']:.4f} ms per "
                   f"call (plain {t['plain_ms']:.4f} ms, {beside}); device "
                   f"time {fmt(t['device_ms'])} (plain "
-                  f"{fmt(t['device_plain_ms'])}, {dev_beside}); bound "
+                  f"{fmt(t['device_plain_ms'])}, {dev_beside}; mirrored "
+                  f"mean: {mirrored}); bound "
                   f"{t['bound_ms']:.4f} ms by {t['bound_by']}: "
                   f"{t['bound_ms'] / t['ms']:.1%} of the per-call time")
         main = paths[MAIN_PATH_OF.get(r["name"], "dense_engine")]
@@ -2470,7 +2532,12 @@ def run() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], "dense_ms": r.get("dense_ms"),
+            "device_ms": r["device_ms"],
+            "device_plain_ms": r["device_plain_ms"],
+            "device_library_ms": r["device_library_ms"],
+            **{"mirrored_device_" + key: r.get("mirrored_device_" + key)
+               for key in ("ms", "plain_ms", "library_ms")},
+            "dense_ms": r.get("dense_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

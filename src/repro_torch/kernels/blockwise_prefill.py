@@ -7,9 +7,11 @@ Replaces ``repro/kernels/blockwise_prefill.py:blockwise_prefill_pallas``
 grouping, position-derived masking (``k_pos <= q_pos``, optional window),
 optional softcap and an online softmax over ``token_tile`` rows.  Bound
 on the H100: operations, small at the serving shapes.  One block per
-(query chunk, kv head, batch row) keeps its queries, running max,
-normaliser and accumulator in shared memory and loops over the view one
-tile at a time.
+(group of query rows, kv head, batch row), each warp owning a few rows,
+folds the view's visible tiles one after another (tiles no query of the
+block sees are skipped, which changes no bit), with the next K/V tile
+loading by ``cp.async`` while the current one is folded and
+register-blocked f32 FMA products.
 """
 from __future__ import annotations
 

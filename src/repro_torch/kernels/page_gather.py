@@ -5,13 +5,16 @@ Replaces ``repro/kernels/paged_attention.py:page_gather_pallas``: the
 [P+1, page, ...] pool of any dtype becomes the per-slot view
 [B, npg·page, ...] through the page table, with dead slots reading the
 trash page 0.  Bound on the H100: bytes (the referenced pages read, the
-view written).  One block per (logical page, slot) copies one page with
-16-byte words; a pure copy, so it equals :func:`ref.gather_pages_ref` bit
-for bit.
+view written).  One block per (8 KB chunk, logical page, slot) copies its
+chunk with 16-byte words, all loads in flight before the stores; a pure
+copy, so it equals :func:`ref.gather_pages_ref` bit for bit.  ``alive``
+reaches the kernel as the bool, uint8 or int32 tensor the caller holds,
+with no cast kernel in between.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -21,12 +24,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
-def _word_bytes(page_bytes: int, *tensors: torch.Tensor) -> int:
+def _word_bytes(page_bytes: int, *ptrs: int) -> int:
     """Widest copy word (16, 4 or 1 bytes) that divides a page and both
     base addresses."""
     for w in (16, 4):
-        if page_bytes % w == 0 and all(t.data_ptr() % w == 0
-                                       for t in tensors):
+        if page_bytes % w == 0 and all(p % w == 0 for p in ptrs):
             return w
     return 1
 
@@ -48,15 +50,20 @@ def page_gather(pool: torch.Tensor, page_table: torch.Tensor,
     dev = pool.device
     build.operand(pool, "pool", pool.dtype, dev)
     tbl = page_table.to(device=dev, dtype=torch.int32).contiguous()
-    alv = alive.to(device=dev, dtype=torch.int32).contiguous()
+    # bool / uint8 are read as bytes, anything else as int32 words
+    byte = alive.dtype in (torch.bool, torch.uint8)
+    alv = alive.to(device=dev, dtype=None if byte else torch.int32)
+    alv = alv.contiguous()
     page = pool.shape[1]
     out = torch.empty((b, npg * page) + tuple(pool.shape[2:]),
                       dtype=pool.dtype, device=dev)
-    page_bytes = pool[0].numel() * pool.element_size()
-    fn = build.function("page_gather", "repro_page_gather", _ARGTYPES)
-    err = fn(pool.data_ptr(), tbl.data_ptr(), alv.data_ptr(), out.data_ptr(),
-             b, npg, pool.shape[0], page_bytes,
-             _word_bytes(page_bytes, pool, out), build.stream_handle(dev))
+    page_bytes = math.prod(pool.shape[1:]) * pool.element_size()
+    src, dst = pool.data_ptr(), out.data_ptr()
+    fn = build.function("page_gather", "repro_page_gather_alive8" if byte
+                        else "repro_page_gather", _ARGTYPES)
+    err = fn(src, tbl.data_ptr(), alv.data_ptr(), dst, b, npg, pool.shape[0],
+             page_bytes, _word_bytes(page_bytes, src, dst),
+             build.stream_handle(dev))
     build.check(err, "page_gather")
     page_gather.launches += 1
     return out

@@ -7,13 +7,16 @@ the machine with the card:
 
 This file imports no ``jax``: that machine has none.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import compression as tc
 from repro_torch.core import kvquant
-from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import build, dispatch, ref
+from repro_torch.kernels.blockwise_prefill import blockwise_prefill
 from repro_torch.kernels.blockwise_prefill_quant import \
     blockwise_prefill_quant
 from repro_torch.kernels.codebook_matmul import codebook_matmul
@@ -499,3 +502,162 @@ def test_cuda_fixed_quant(cuda, mode, dtype):
                                torch.bfloat16 else got.view(torch.int32),
                                want.view(torch.int16) if dtype ==
                                torch.bfloat16 else want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Rows 4 and 10 at the engine's prefill shapes: skipped tiles, alive dtypes
+# ---------------------------------------------------------------------------
+
+def _prefill_view(g, cuda, c, h, kv, hd, s, tile, b=1, start=0, vd=None):
+    """Random q and a view of s rows (random values in every row, the pad
+    included) padded with sentinel positions to a tile multiple."""
+    s_pad = -(-s // tile) * tile
+    q = torch.randn(b, c, h, hd, generator=g, device=cuda)
+    k = torch.randn(b, s_pad, kv, hd, generator=g, device=cuda)
+    v = torch.randn(b, s_pad, kv, vd or hd, generator=g, device=cuda)
+    k_pos = torch.full((s_pad,), ref.POS_SENTINEL, dtype=torch.int32,
+                       device=cuda)
+    k_pos[:s] = torch.arange(s, dtype=torch.int32, device=cuda)
+    q_pos = torch.arange(start, start + c, dtype=torch.int32, device=cuda)
+    return q, k, v, q_pos, k_pos
+
+
+def _held_prefill(q, k, v, q_pos, k_pos, **kw):
+    before = blockwise_prefill.launches
+    got = blockwise_prefill(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    assert blockwise_prefill.launches == before + 1
+    want = ref.blockwise_prefill_ref(q, k, v, q_pos, k_pos, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 64])
+def test_cuda_blockwise_prefill_engine_view(cuda, start):
+    """One slot's 64-token block over its 9-page view (144 rows padded to
+    192): the tiles past the block are skipped."""
+    g = torch.Generator(device=cuda).manual_seed(20 + start)
+    view = _prefill_view(g, cuda, c=64, h=16, kv=16, hd=64, s=144, tile=64,
+                         start=start)
+    _held_prefill(*view, scale=0.125, token_tile=64)
+
+
+@pytest.mark.cuda
+def test_cuda_blockwise_prefill_window_skips_first_tile(cuda):
+    """A window that leaves the first tile wholly invisible, GQA rep 4,
+    softcap on."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, q_pos, k_pos = _prefill_view(g, cuda, c=16, h=8, kv=2, hd=64,
+                                          s=128, tile=32, b=2, start=96)
+    assert int(q_pos.min()) - 31 >= 40
+    _held_prefill(q, k, v, q_pos, k_pos, window=40, softcap=20.0,
+                  scale=0.125, token_tile=32)
+
+
+@pytest.mark.cuda
+def test_cuda_blockwise_prefill_queries_before_every_key(cuda):
+    """No query sees any row: the output is all 0, as the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v, q_pos, _ = _prefill_view(g, cuda, c=8, h=4, kv=4, hd=64, s=64,
+                                      tile=64)
+    k_pos = torch.arange(100, 164, dtype=torch.int32, device=cuda)
+    got, want = _held_prefill(q, k, v, q_pos, k_pos, scale=0.125,
+                              token_tile=64)
+    assert torch.equal(want, torch.zeros_like(want))
+    assert torch.equal(got, want)
+
+
+# Launch plans of row 4 that no other case reaches on a 132-SM H100, as
+# (query rows a warp, K/V buffers): one buffer where two do not fit in
+# shared memory, and two rows a warp.
+PREFILL_PLANS = {
+    "mla-tile128-one-buffer": (dict(c=64, h=16, kv=16, hd=192, vd=128,
+                                    s=144, tile=128, start=64), (1, 1)),
+    "mla-tile128-one-buffer-4-rows": (dict(b=4, c=64, h=16, kv=16, hd=192,
+                                           vd=128, s=144, tile=128,
+                                           start=64), (4, 1)),
+    "hd64-tile256-one-buffer": (dict(c=64, h=16, kv=16, hd=64, s=144,
+                                     tile=256, start=64), (1, 1)),
+    "b2-block-2-rows": (dict(b=2, c=64, h=16, kv=16, hd=64, s=64, tile=64),
+                        (2, 2)),
+    "b2-engine-view-2-rows": (dict(b=2, c=64, h=16, kv=16, hd=64, s=144,
+                                   tile=64, start=64), (2, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_PLANS))
+def test_cuda_blockwise_prefill_launch_plans(cuda, case):
+    p, want_plan = PREFILL_PLANS[case]
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q, k, v, q_pos, k_pos = _prefill_view(g, cuda, **p)
+    grid = build.function("blockwise_prefill", "repro_blockwise_prefill_grid",
+                          [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4)
+    out = [ctypes.c_int() for _ in range(4)]
+    build.check(grid(*q.shape[:3], k.shape[2], k.shape[1], q.shape[3],
+                     v.shape[3], p["tile"], *(ctypes.byref(x) for x in out)),
+                "blockwise_prefill")
+    assert (out[2].value, out[3].value) == want_plan
+    _held_prefill(q, k, v, q_pos, k_pos, scale=p["hd"] ** -0.5,
+                  token_tile=p["tile"])
+
+
+@pytest.mark.cuda
+def test_cuda_blockwise_prefill_nan_in_unseen_v_rows(cuda):
+    """A NaN in a V row no query sees: in a tile some query sees, the
+    masked probability 0 multiplies it on both routes, so the kv head's
+    outputs are NaN alike; in a tile no query sees, the kernel never reads
+    it (the plain version, folding every tile, still multiplies it)."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    q, k, v, q_pos, k_pos = _prefill_view(g, cuda, c=16, h=4, kv=2, hd=64,
+                                          s=100, tile=64, start=24)
+    kw = dict(scale=0.125, token_tile=64)
+    v[0, 50, 0] = float("nan")      # k_pos 50 > every q_pos; tile 0 is seen
+    got = blockwise_prefill(q, k, v, q_pos, k_pos, **kw)
+    want = ref.blockwise_prefill_ref(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(want[:, :, :2]).all()          # kv head 0's heads
+    assert (got[:, :, 2:] - want[:, :, 2:]).abs().max() <= \
+        1e-4 * want[:, :, 2:].abs().max()
+    v[0, 50, 0] = 0.0
+    v[0, 70, 0] = float("nan")      # tile 1 (rows 64..127): no query sees it
+    got = blockwise_prefill(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.isnan(ref.blockwise_prefill_ref(q, k, v, q_pos, k_pos,
+                                                 **kw)[:, :, :2]).all()
+    v[0, 70, 0] = 0.0
+    want = ref.blockwise_prefill_ref(q, k, v, q_pos, k_pos, **kw)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alive_dtype", [torch.bool, torch.uint8,
+                                         torch.int32])
+@pytest.mark.parametrize("case", ["prefill-64KB-pages", "1-byte-words",
+                                  "8-slots-2-dead"])
+def test_cuda_page_gather_alive_dtypes(cuda, case, alive_dtype):
+    g = torch.Generator(device=cuda).manual_seed(23)
+    b, npg, page, feat, dtype = {
+        "prefill-64KB-pages": (1, 9, 16, (16, 64), torch.float32),
+        "1-byte-words": (3, 4, 5, (3,), torch.uint8),
+        "8-slots-2-dead": (8, 9, 16, (16, 64), torch.float32),
+    }[case]
+    n_phys = b * npg + 1
+    pool = torch.randint(-999, 999, (n_phys, page) + feat, generator=g,
+                         device=cuda).to(dtype)
+    table = 1 + torch.randperm(n_phys - 1, generator=g, device=cuda)[
+        :b * npg].reshape(b, npg).to(torch.int32)
+    alive = torch.ones(b, dtype=torch.bool, device=cuda)
+    if b == 8:
+        alive[[1, 6]] = False
+    before = page_gather.launches
+    got = page_gather(pool, table, alive.to(alive_dtype))
+    torch.cuda.synchronize()
+    assert page_gather.launches == before + 1
+    assert torch.equal(got, ref.gather_pages_ref(pool, table, alive))
+    for s in torch.nonzero(~alive).flatten().tolist():
+        assert torch.equal(got[s], pool[0].repeat((npg,) + (1,) * len(feat)))
