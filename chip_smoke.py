@@ -26,7 +26,10 @@
    as a yardstick (none reads packed KV words: the quantized kernels
    stand beside their dense kernel at the same shape instead), and the
    least time the card could take (the larger of bytes / 3.35 TB/s and
-   FLOPs / 67 TFLOP/s f32).
+   FLOPs / 67 TFLOP/s f32).  The two codebook matmuls are also held at
+   the engine's one-slot prefill block (M = 64), checked for equal bits on
+   two calls, and timed at M = 4, 64 and 256 with their launch plan and a
+   second bound, 3xTF32 on the tensor cores (three passes at 495 TFLOP/s).
 3. C-step path at full width: compresses a random ``qwen1.5-0.5b`` (weights
    from a seed) on the card by direct compression with
    ``CompressionPlan.parse("adaptive:16")`` (k-means++ seeds, up to 50
@@ -94,6 +97,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # the same, f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # the same, dense TF32 on the tensor cores
 KS = (2, 4, 16, 256)
 K_MAIN = 16
 L2_BYTES = 50 * 2 ** 20
@@ -226,10 +230,27 @@ def copies_for(nbytes: int) -> int:
     return max(1, min(64, -(-2 * L2_BYTES // max(nbytes, 1))))
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = F32_FLOPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_timings(label: str, kernel, plain, library, *, m: int, kd: int,
+                   n: int, index_bytes: int, err: float, plan) -> dict:
+    """``time_all`` of one codebook matmul shape, with its f32 bound (the
+    products on the CUDA cores) and its 3xTF32 bound (three TF32 passes on
+    the tensor cores) beside the launch plan that ran."""
+    nbytes = m * kd * 4 + index_bytes + K_MAIN * 4 + m * n * 4
+    b_ms, b_by = bound(nbytes, 2 * m * kd * n)
+    tc_ms, tc_by = bound(nbytes, 3 * 2 * m * kd * n, TF32_FLOPS_PER_S)
+    t = dict(shape=f"M={m} Kd={kd} N={n} K={K_MAIN}{label} plan {plan}",
+             max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+             tc_bound_ms=tc_ms, tc_bound_by=tc_by,
+             **time_all(kernel, plain, library))
+    print(f"  timing {t}")
+    return t
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, *,
@@ -306,13 +327,15 @@ def check_gather(gen, dev, sh: Shapes) -> dict:
 
 def check_matmul(gen, dev, sh: Shapes) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.codebook_matmul_packed import \
-        codebook_matmul_packed
+    from repro_torch.kernels.codebook_matmul_packed import (
+        codebook_matmul_packed, packed_plan, sm_count)
     print("codebook_matmul_packed:")
-    shapes = [(3, 37, 70), (33, 100, 130)]
-    m_decode, m_prefill = sh.batch, sh.batch * sh.block
-    for m in (m_decode, m_prefill):
+    shapes = [(3, 37, 70), (33, 100, 130), (17, 1000, 130)]
+    # decode, the engine's one-slot prefill block, the one-shot prefill
+    ms = (sh.batch, sh.block, sh.batch * sh.block)
+    for m in ms:
         shapes += [(m, kd, n) for kd, n in sh.proj]
+    sms = sm_count(dev.index or 0)
     errs = {}
     for k in KS:
         for (m, kd, n) in shapes:
@@ -320,13 +343,17 @@ def check_matmul(gen, dev, sh: Shapes) -> dict:
             pidx = packed_words(idx, k, "kd")
             x = torch.randn(m, kd, generator=gen, device=dev)
             got = codebook_matmul_packed(x, pidx, cb)
+            again = codebook_matmul_packed(x, pidx, cb)
             torch.cuda.synchronize()
+            label = (f"K={k} M={m} Kd={kd} N={n} "
+                     f"{tuple(packed_plan(m, kd, n, k, sms))}")
+            if not torch.equal(got, again):
+                raise SmokeFailure(f"{label}: two calls differ")
             errs[(k, m, kd, n)] = compare(
-                f"K={k} M={m} Kd={kd} N={n}", got,
-                ref.packed_codebook_matmul_ref(x, pidx, cb))
+                label, got, ref.packed_codebook_matmul_ref(x, pidx, cb))
     timings = {}
     kd, n = sh.proj[1]                       # w_in / w_gate
-    for m in (m_decode, m_prefill):
+    for m in ms:
         cb, idx = rand_operands(gen, K_MAIN, kd, n, dev)
         pidx = packed_words(idx, K_MAIN, "kd")
         x = torch.randn(m, kd, generator=gen, device=dev)
@@ -335,18 +362,15 @@ def check_matmul(gen, dev, sh: Shapes) -> dict:
               for _ in range(nc)]
         wd = [cb[idx] for _ in range(copies_for(kd * n * 4))]
         it = iter(range(10 ** 9))
-        times = time_all(
-            lambda: codebook_matmul_packed(x, pw[next(it) % nc], cb),
+        timings[m] = matmul_timings(
+            "", lambda: codebook_matmul_packed(x, pw[next(it) % nc], cb),
             lambda: ref.packed_codebook_matmul_ref(x, pw[next(it) % nc], cb),
-            lambda: torch.matmul(x, wd[next(it) % len(wd)]))
-        b_ms, b_by = bound(m * kd * 4 + pidx.numel() * 4 + K_MAIN * 4
-                           + m * n * 4, 2 * m * kd * n)
-        timings[m] = dict(shape=f"M={m} Kd={kd} N={n} K={K_MAIN}",
-                          max_abs_err=errs[(K_MAIN, m, kd, n)],
-                          bound_ms=b_ms, bound_by=b_by, **times)
-        print(f"  timing {timings[m]}")
-    return dict(name="codebook_matmul_packed", **timings[m_decode],
-                prefill=timings[m_prefill])
+            lambda: torch.matmul(x, wd[next(it) % len(wd)]), m=m, kd=kd,
+            n=n, index_bytes=pidx.numel() * 4,
+            err=errs[(K_MAIN, m, kd, n)],
+            plan=tuple(packed_plan(m, kd, n, K_MAIN, sms)))
+    return dict(name="codebook_matmul_packed", **timings[ms[0]],
+                prefill=[timings[m] for m in ms[1:]])
 
 
 def check_matmul_t(gen, dev, sh: Shapes) -> dict:
@@ -898,12 +922,16 @@ def check_prefill_quant(gen, dev, sh: Shapes) -> dict:
 
 def check_codebook_matmul(gen, dev, sh: Shapes) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.codebook_matmul import codebook_matmul
+    from repro_torch.kernels.codebook_matmul import (codebook_matmul,
+                                                     uint8_plan)
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
     print("codebook_matmul (uint8 indices):")
-    shapes = [(3, 37, 70), (33, 100, 130)]          # one-byte index loads
-    m_decode, m_prefill = sh.batch, sh.batch * sh.block
+    # one-byte index loads (N % 4 != 0), then the four-byte ones
+    shapes = [(3, 37, 70), (33, 100, 130), (17, 1000, 130)]
+    ms = (sh.batch, sh.block, sh.batch * sh.block)
     kd, n = sh.proj[1]                              # w_in / w_gate
-    shapes += [(m, kd, n) for m in (m_decode, m_prefill)]
+    shapes += [(m, kd, n) for m in ms]
+    sms = sm_count(dev.index or 0)
     errs = {}
     for k in KS:
         for (m, kd_, n_) in shapes:
@@ -911,12 +939,16 @@ def check_codebook_matmul(gen, dev, sh: Shapes) -> dict:
             idx = idx.to(torch.uint8)
             x = torch.randn(m, kd_, generator=gen, device=dev)
             got = codebook_matmul(x, idx, cb)
+            again = codebook_matmul(x, idx, cb)
             torch.cuda.synchronize()
+            label = (f"K={k} M={m} Kd={kd_} N={n_} "
+                     f"{tuple(uint8_plan(m, kd_, n_, sms))}")
+            if not torch.equal(got, again):
+                raise SmokeFailure(f"{label}: two calls differ")
             errs[(k, m, kd_, n_)] = compare(
-                f"K={k} M={m} Kd={kd_} N={n_}", got,
-                ref.codebook_matmul_ref(x, idx, cb))
+                label, got, ref.codebook_matmul_ref(x, idx, cb))
     timings = {}
-    for m in (m_decode, m_prefill):
+    for m in ms:
         cb, idx = rand_operands(gen, K_MAIN, kd, n, dev)
         idx = idx.to(torch.uint8)
         x = torch.randn(m, kd, generator=gen, device=dev)
@@ -924,18 +956,14 @@ def check_codebook_matmul(gen, dev, sh: Shapes) -> dict:
         ix = [idx.clone() for _ in range(nc)]
         wd = [cb[idx.long()] for _ in range(copies_for(kd * n * 4))]
         it = iter(range(10 ** 9))
-        times = time_all(
-            lambda: codebook_matmul(x, ix[next(it) % nc], cb),
+        timings[m] = matmul_timings(
+            " uint8", lambda: codebook_matmul(x, ix[next(it) % nc], cb),
             lambda: ref.codebook_matmul_ref(x, ix[next(it) % nc], cb),
-            lambda: torch.matmul(x, wd[next(it) % len(wd)]))
-        b_ms, b_by = bound(m * kd * 4 + idx.numel() + K_MAIN * 4
-                           + m * n * 4, 2 * m * kd * n)
-        timings[m] = dict(shape=f"M={m} Kd={kd} N={n} K={K_MAIN} uint8",
-                          max_abs_err=errs[(K_MAIN, m, kd, n)],
-                          bound_ms=b_ms, bound_by=b_by, **times)
-        print(f"  timing {timings[m]}")
-    return dict(name="codebook_matmul", **timings[m_decode],
-                prefill=timings[m_prefill])
+            lambda: torch.matmul(x, wd[next(it) % len(wd)]), m=m, kd=kd,
+            n=n, index_bytes=idx.numel(), err=errs[(K_MAIN, m, kd, n)],
+            plan=tuple(uint8_plan(m, kd, n, sms)))
+    return dict(name="codebook_matmul", **timings[ms[0]],
+                prefill=[timings[m] for m in ms[1:]])
 
 
 # The small odd MLA shape of rows 8 and 9: 3 heads, latent 40, rope 6,
@@ -1946,9 +1974,9 @@ class WriteTape:
         write = attn._write_rows_quant
 
         def record(words, cbs, phys, off, alive, new, bits, cb_mode, first,
-                   cb_fit):
+                   cb_fit, src=None):
             out = write(words, cbs, phys, off, alive, new, bits, cb_mode,
-                        first, cb_fit)
+                        first, cb_fit, src)
             self.calls.append(dict(
                 new=new.clone(), alive=alive.clone(),
                 first=None if cb_fit is None else new[first].clone(),
@@ -1990,7 +2018,7 @@ def replaying(tape: WriteTape, what: str, report: dict):
     calls = iter(tape.calls)
 
     def replay(words, cbs, phys, off, alive, new, bits, cb_mode, first,
-               cb_fit):
+               cb_fit, src=None):
         if report["calls"] == len(tape.calls):
             raise SmokeFailure(f"the CPU replay writes more than the card's "
                                f"{len(tape.calls)} calls")
@@ -2005,7 +2033,7 @@ def replaying(tape: WriteTape, what: str, report: dict):
                                f"the card")
         if what == "fits":
             return write(words, cbs, phys, off, alive, new, bits, cb_mode,
-                         first, card["cb_fit"])
+                         first, card["cb_fit"], src)
         live = card["alive"]
         scale = card["new"].abs().max().item()
         err = (new - card["new"]).abs()[live].max().item() if live.any() \
@@ -2520,7 +2548,9 @@ def run() -> int:
                   f"{fmt(t['device_plain_ms'])}, {dev_beside}; mirrored "
                   f"mean: {mirrored}); bound "
                   f"{t['bound_ms']:.4f} ms by {t['bound_by']}: "
-                  f"{t['bound_ms'] / t['ms']:.1%} of the per-call time")
+                  f"{t['bound_ms'] / t['ms']:.1%} of the per-call time"
+                  + (f"; 3xTF32 tensor-core bound {t['tc_bound_ms']:.4f} ms "
+                     f"by {t['tc_bound_by']}" if "tc_bound_ms" in t else ""))
         main = paths[MAIN_PATH_OF.get(r["name"], "dense_engine")]
         kernels.append({
             "name": r["name"], "route": "cuda",

@@ -1,27 +1,39 @@
 """Codebook matmul over uint8 indices — CUDA kernel ``csrc/codebook_matmul.cu``
-and its wrapper.
+(its kernels in ``csrc/codebook_mma.cuh``, shared with row 1) and its
+wrapper.
 
 Replaces ``repro/kernels/codebook_matmul.py:codebook_matmul_pallas``:
 y[M, N] = x[M, Kd] · cb[idx] with idx uint8 [Kd, N] (the
 ``--serve-layout uint8`` oracle layout, one byte per weight) and a K ≤ 256
-entry f32 codebook.  Bound on the H100: the index bytes at decode, f32
-FMAs at prefill.  Each block stages the codebook as a 256-entry LUT,
-dequantizes a [64, 64] index tile (four bytes per load where N allows)
-into shared memory per K step and accumulates a register tile in f32; at
-decode the K loop is split across blocks (a partial-sum workspace from
-``torch.empty`` plus an in-order second pass), as in
-:mod:`repro_torch.kernels.codebook_matmul_packed`.
+entry f32 codebook.  The launch plans of
+:mod:`repro_torch.kernels.codebook_matmul_packed` with a byte operand: at
+M ≤ 16 a CUDA-core kernel bound by the index bytes (4-byte loads where
+N % 4 == 0), above it 3×TF32 tensor-core tiles over the codebook as 256
+(hi, lo) TF32 pairs; K split over a cluster's blocks, one launch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.codebook_matmul_packed import split_k
+from repro_torch.kernels.codebook_matmul_packed import (TC_COLS, Plan, plan,
+                                                        sm_count)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+STEP_ROWS = 32         # index rows of a tensor-core K step (the .cu's)
+STAGES = 3             # its cp.async ring (the .cu's)
+
+
+@functools.lru_cache(maxsize=4096)
+def uint8_plan(m: int, kd: int, n: int, sms: int) -> Plan:
+    """:func:`~repro_torch.kernels.codebook_matmul_packed.plan` of a uint8
+    call: the decode plan streams kd index rows."""
+    return plan(m, kd, n, load_rows=kd, step=STEP_ROWS, sm_count=sms,
+                entries=256, stages=STAGES,
+                tile_bytes=tuple(STEP_ROWS * (c + 4) for c in TC_COLS))
 
 
 def codebook_matmul(x: torch.Tensor, idx: torch.Tensor,
@@ -40,15 +52,12 @@ def codebook_matmul(x: torch.Tensor, idx: torch.Tensor,
     build.operand(x, "x", torch.float32, dev)
     m, kd = x.shape
     n = idx.shape[1]
-    splits = split_k(m, n, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    p = uint8_plan(m, kd, n, sm_count(dev.index))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-               if splits > 1 else out)
     fn = build.function("codebook_matmul", "repro_codebook_matmul", _ARGTYPES)
     err = fn(x.data_ptr(), idx.data_ptr(), codebook.data_ptr(),
-             out.data_ptr(), partial.data_ptr(), m, kd, n,
-             codebook.shape[0], splits, build.stream_handle(dev))
+             out.data_ptr(), m, kd, n, codebook.shape[0], p.tile, p.splits,
+             build.stream_handle(dev))
     build.check(err, "codebook_matmul")
     codebook_matmul.launches += 1
     return out

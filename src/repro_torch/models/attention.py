@@ -133,10 +133,12 @@ def gqa_decode(p, x_t: torch.Tensor, cache: KVCache, pos: int, *,
 # decode step serves any admission / eviction state with the same shapes.
 # Where the reference returns new pools, the port writes them in place
 # (``index_put_``) and returns the same cache.  Many dead slots may write
-# the trash page's cell at once; which write lands there is unspecified on
-# the card, which is harmless because the trash page is only ever read
-# masked.  The writes are issued before the attention reads them, on the
-# same stream.
+# the trash page's cell at once.  The card resolves duplicate indices of a
+# scatter in no fixed order, so every write first takes the value of the
+# last row (in row order) that targets its cell (:func:`_last_writer`):
+# duplicates then carry equal values and the pools hold what a serial
+# write leaves, page 0 included, on both devices.  The writes are issued
+# before the attention reads them, on the same stream.
 # ---------------------------------------------------------------------------
 
 
@@ -153,38 +155,95 @@ def init_paged_kv_cache(n_pages: int, page_size: int, n_kv: int,
                         v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _write_slot(pool: torch.Tensor, page_table: torch.Tensor,
-                pos: torch.Tensor, alive: torch.Tensor, new: torch.Tensor,
-                page_size: int) -> torch.Tensor:
-    """Scatter one new entry per slot into its current page, in place.
+def _last_writer(cell: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """For each row of ``cell`` [*I] (flat cell ids below ``n_cells``), the
+    flat index of the last row, in row order, with the same cell: a scatter
+    that gives every row that row's value writes equal values to a
+    duplicated cell, so it leaves what a serial write leaves whatever order
+    the device resolves duplicates in.  No host read: a ``scatter_reduce``
+    (amax) of row numbers, then a gather."""
+    flat = cell.reshape(-1)
+    rows = torch.arange(flat.numel(), device=flat.device)
+    last = torch.empty(n_cells, dtype=torch.long, device=flat.device)
+    last.scatter_reduce_(0, flat, rows, "amax", include_self=False)
+    return last[flat].reshape(cell.shape)
 
-    pool [P+1, page, ...]; page_table [B, npg]; pos / alive [B];
-    new [B, ...].  Dead (or page-starved) slots write the trash page."""
-    b = new.shape[0]
-    npg = page_table.shape[1]
+
+def _take_rows(values: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``values`` [*I, ...] with row i replaced by flat row ``src[i]``."""
+    lead = values.reshape((src.numel(),) + values.shape[src.ndim:])
+    return lead[src.reshape(-1)].reshape(values.shape)
+
+
+class PageWrites(NamedTuple):
+    """Where a step's page writes land: cells (phys, off) [*I] and, per
+    row, the row whose value it stores (:func:`_last_writer`).  The same for
+    every layer of a stack and for K and V, so an engine step computes it
+    once (:func:`slot_writes`, :func:`block_writes`)."""
+    phys: torch.Tensor
+    off: torch.Tensor
+    src: torch.Tensor
+
+
+def _page_writes(phys, off, page_size: int, n_pages: int) -> PageWrites:
+    return PageWrites(phys, off,
+                      _last_writer(phys * page_size + off, n_pages * page_size))
+
+
+def slot_writes(page_table: torch.Tensor, pos: torch.Tensor,
+                alive: torch.Tensor, page_size: int,
+                n_pages: int) -> PageWrites:
+    """One decode write per slot, [B]: slot b writes logical position
+    pos[b] of its pages; dead (or page-starved) slots write the trash page.
+    ``n_pages`` counts the pool's pages, the trash page included."""
+    b, npg = page_table.shape
     pos = pos.long()
     pg = torch.clamp(pos // page_size, 0, npg - 1)
-    phys = page_table.long()[torch.arange(b, device=pool.device), pg]
+    phys = page_table.long()[torch.arange(b, device=pos.device), pg]
     phys = torch.where(alive.bool(), phys, 0)
-    pool[phys, pos % page_size] = new.to(pool.dtype)
-    return pool
+    return _page_writes(phys, pos % page_size, page_size, n_pages)
 
 
-def _write_block_slot(pool: torch.Tensor, page_table: torch.Tensor, start,
-                      alive: torch.Tensor, new: torch.Tensor,
-                      page_size: int) -> torch.Tensor:
-    """Blockwise twin of ``_write_slot``: scatter ``c`` consecutive
-    entries per slot from logical position ``start`` (an int or [B]), in
-    place.  new [B, c, ...].  Dead slots write the trash page."""
-    b, c = new.shape[0], new.shape[1]
-    npg = page_table.shape[1]
-    dev = pool.device
+def block_writes(page_table: torch.Tensor, start, alive: torch.Tensor,
+                 c: int, page_size: int, n_pages: int) -> PageWrites:
+    """``c`` consecutive writes per slot from logical position ``start``
+    (an int or [B]), [B, c]; dead slots write the trash page."""
+    b, npg = page_table.shape
+    dev = page_table.device
     start = torch.as_tensor(start, device=dev).long().reshape(-1)
     t = start.expand(b)[:, None] + torch.arange(c, device=dev)[None, :]
     pg = torch.clamp(t // page_size, 0, npg - 1)
     phys = page_table.long()[torch.arange(b, device=dev)[:, None], pg]
     phys = torch.where(alive.bool()[:, None], phys, 0)
-    pool[phys, t % page_size] = new.to(pool.dtype)
+    return _page_writes(phys, t % page_size, page_size, n_pages)
+
+
+def _write_slot(pool: torch.Tensor, page_table: torch.Tensor,
+                pos: torch.Tensor, alive: torch.Tensor, new: torch.Tensor,
+                page_size: int,
+                writes: Optional[PageWrites] = None) -> torch.Tensor:
+    """Scatter one new entry per slot into its current page, in place.
+
+    pool [P+1, page, ...]; page_table [B, npg]; pos / alive [B];
+    new [B, ...].  Dead (or page-starved) slots write the trash page.
+    ``writes``: the step's :func:`slot_writes`, when the caller made it."""
+    w = writes if writes is not None else slot_writes(
+        page_table, pos, alive, page_size, pool.shape[0])
+    pool[w.phys, w.off] = _take_rows(new, w.src).to(pool.dtype)
+    return pool
+
+
+def _write_block_slot(pool: torch.Tensor, page_table: torch.Tensor, start,
+                      alive: torch.Tensor, new: torch.Tensor,
+                      page_size: int,
+                      writes: Optional[PageWrites] = None) -> torch.Tensor:
+    """Blockwise twin of ``_write_slot``: scatter ``c`` consecutive
+    entries per slot from logical position ``start`` (an int or [B]), in
+    place.  new [B, c, ...].  Dead slots write the trash page.  ``writes``:
+    the step's :func:`block_writes`, when the caller made it."""
+    w = writes if writes is not None else block_writes(
+        page_table, start, alive, new.shape[1], page_size, pool.shape[0])
+    pool[w.phys, w.off] = _take_rows(new, w.src).to(pool.dtype)
     return pool
 
 
@@ -200,19 +259,21 @@ def gqa_decode_paged(p, x_t: torch.Tensor, cache: PagedKVCache,
                      page_table: torch.Tensor, pos: torch.Tensor,
                      alive: torch.Tensor, *, n_heads: int, n_kv: int,
                      head_dim: int, page_size: int, attn_softcap=None,
-                     rope_theta: float = 10000.0, query_scale=None):
+                     rope_theta: float = 10000.0, query_scale=None,
+                     writes: Optional[PageWrites] = None):
     """One-token GQA decode for a batch of engine slots.
 
     x_t [B,1,D]; page_table [B, npg] int32; pos [B] per-slot write
     positions; alive [B] bool (dead slots: reads fully masked, writes land
-    on the trash page).  Returns (out [B,1,D], cache) — the pools are
-    written in place."""
+    on the trash page); ``writes`` the step's :func:`slot_writes` when the
+    caller made it.  Returns (out [B,1,D], cache) — the pools are written
+    in place."""
     q, k, v = _qkv(p, x_t, n_heads, n_kv, head_dim)
     posb = pos[:, None]
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
-    _write_slot(cache.k, page_table, pos, alive, k[:, 0], page_size)
-    _write_slot(cache.v, page_table, pos, alive, v[:, 0], page_size)
+    _write_slot(cache.k, page_table, pos, alive, k[:, 0], page_size, writes)
+    _write_slot(cache.v, page_table, pos, alive, v[:, 0], page_size, writes)
     scale = query_scale if query_scale is not None else head_dim ** -0.5
     o = dispatch.paged_attention(q, cache.k, cache.v, page_table, pos, alive,
                                  softcap=attn_softcap, scale=scale)
@@ -223,21 +284,24 @@ def gqa_prefill_block_paged(p, x: torch.Tensor, cache: PagedKVCache,
                             page_table: torch.Tensor, start: int,
                             alive: torch.Tensor, *, n_heads: int, n_kv: int,
                             head_dim: int, page_size: int, attn_softcap=None,
-                            rope_theta: float = 10000.0, query_scale=None):
+                            rope_theta: float = 10000.0, query_scale=None,
+                            writes: Optional[PageWrites] = None):
     """One prompt block of a paged GQA layer.
 
     x [B,c,D]; ``start`` the block's first logical position.  Writes the
-    block's K/V into the slot's pages, then attends the block's queries
-    over the gathered page view through the blockwise-prefill route —
-    rows past ``start + c`` are future or stale and mask out causally (row
-    index == position).  Returns (out [B,c,D], cache)."""
+    block's K/V into the slot's pages (``writes``: the step's
+    :func:`block_writes` when the caller made it), then attends the
+    block's queries over the gathered page view through the
+    blockwise-prefill route — rows past ``start + c`` are future or stale
+    and mask out causally (row index == position).  Returns (out [B,c,D],
+    cache)."""
     b, c, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     t = start + torch.arange(c, device=x.device)
     q = apply_rope(q, t[None, :], rope_theta)
     k = apply_rope(k, t[None, :], rope_theta)
-    _write_block_slot(cache.k, page_table, start, alive, k, page_size)
-    _write_block_slot(cache.v, page_table, start, alive, v, page_size)
+    _write_block_slot(cache.k, page_table, start, alive, k, page_size, writes)
+    _write_block_slot(cache.v, page_table, start, alive, v, page_size, writes)
     view_k = _gather_slots(cache.k, page_table, alive)     # [B,cap,KV,hd]
     view_v = _gather_slots(cache.v, page_table, alive)
     scale = query_scale if query_scale is not None else head_dim ** -0.5
@@ -324,19 +388,25 @@ def first_block_rows(start: int, c: int, page_size: int) -> slice:
 def _write_rows_quant(words: torch.Tensor, cbs: torch.Tensor,
                       phys: torch.Tensor, off: torch.Tensor,
                       alive: torch.Tensor, new: torch.Tensor, bits: int,
-                      cb_mode: str, first, cb_fit: Optional[torch.Tensor]):
+                      cb_mode: str, first, cb_fit: Optional[torch.Tensor],
+                      src: torch.Tensor):
     """Write token rows ``new`` [*I, KV, hd] at cells (phys, off) [*I].
     ``first`` indexes (into *I) the rows that start a page and ``cb_fit``
     holds their fitted codebooks; each replaces its page's codebook where
     the row's slot is alive (``alive`` [*I]).  Then every row is assigned
-    against its page's codebook, packed and scattered, in place."""
+    against its page's codebook, packed and scattered, in place; a cell
+    written twice keeps the last row's words (``src`` [*I]: the cells'
+    :func:`_last_writer`)."""
     if cb_fit is not None:
         pf = phys[first]
         keep = cbs[pf]
-        cbs[pf] = torch.where(alive[first][..., None, None], cb_fit, keep)
+        cbs[pf] = _take_rows(torch.where(alive[first][..., None, None],
+                                         cb_fit, keep),
+                             _last_writer(pf, cbs.shape[0]))
     grp = _quant_groups(new, cb_mode)
     idx = kvquant.assign_codebook(grp, cbs[phys])
-    words[phys, off] = kvquant.pack_rows_torch(idx.reshape(new.shape), bits)
+    packed = kvquant.pack_rows_torch(idx.reshape(new.shape), bits)
+    words[phys, off] = _take_rows(packed, src)
     return words, cbs
 
 
@@ -345,7 +415,8 @@ def _write_slot_quant(words: torch.Tensor, cbs: torch.Tensor,
                       alive: torch.Tensor, new: torch.Tensor, page_size: int,
                       bits: int, cb_mode: str,
                       fit: Optional[Tuple[torch.Tensor,
-                                          Optional[torch.Tensor]]] = None):
+                                          Optional[torch.Tensor]]] = None,
+                      writes: Optional[PageWrites] = None):
     """Quantizing twin of ``_write_slot``, in place: words [P+1, page, KV,
     Wd]; cbs [P+1, Gcb, K]; new [B, KV, hd].  A live slot writing offset 0
     of a page fits that page's codebook from its row and freezes it;
@@ -353,15 +424,11 @@ def _write_slot_quant(words: torch.Tensor, cbs: torch.Tensor,
     trash page and never refit it.  ``fit`` = (slots [F] long, codebooks
     [F, Gcb, K] or None when F = 0) carries the fits of the slots that
     start a page when the caller made them (K and V together); without it
-    they are found from ``pos`` (a host read) and fit here.  Returns
+    they are found from ``pos`` (a host read) and fit here.  ``writes``:
+    the step's :func:`slot_writes`, when the caller made it.  Returns
     (words, cbs)."""
-    b = new.shape[0]
-    dev = words.device
-    npg = page_table.shape[1]
-    pos = pos.long()
-    pg = torch.clamp(pos // page_size, 0, npg - 1)
-    phys = page_table.long()[torch.arange(b, device=dev), pg]
-    phys = torch.where(alive.bool(), phys, 0)
+    w = writes if writes is not None else slot_writes(
+        page_table, pos, alive, page_size, words.shape[0])
     if fit is None:
         rows = first_write_slots(pos, page_size)
         cb_fit = (kvquant.fit_codebooks(_quant_groups(new[rows], cb_mode),
@@ -369,38 +436,36 @@ def _write_slot_quant(words: torch.Tensor, cbs: torch.Tensor,
                   if rows.numel() else None)
     else:
         rows, cb_fit = fit
-    return _write_rows_quant(words, cbs, phys, pos % page_size, alive.bool(),
-                             new, bits, cb_mode, (rows,), cb_fit)
+    return _write_rows_quant(words, cbs, w.phys, w.off, alive.bool(), new,
+                             bits, cb_mode, (rows,), cb_fit, w.src)
 
 
 def _write_block_slot_quant(words: torch.Tensor, cbs: torch.Tensor,
                             page_table: torch.Tensor, start: int,
                             alive: torch.Tensor, new: torch.Tensor,
                             page_size: int, bits: int, cb_mode: str,
-                            fit: Optional[torch.Tensor] = None):
+                            fit: Optional[torch.Tensor] = None,
+                            writes: Optional[PageWrites] = None):
     """Blockwise twin of ``_write_slot_quant``, in place: ``c`` tokens per
     slot from logical position ``start`` (an int, shared by the slots);
     new [B, c, KV, hd].  The block's rows at page offset 0 fit their
     pages' codebooks (``fit`` [B, F, Gcb, K] when the caller made them,
     for the offsets of :func:`first_block_rows`), then every token is
     assigned against its page's codebook: the reference's token-by-token
-    scan, written at once.  Returns (words, cbs)."""
+    scan, written at once.  ``writes``: the step's :func:`block_writes`,
+    when the caller made it.  Returns (words, cbs)."""
     b, c = new.shape[0], new.shape[1]
-    dev = words.device
-    npg = page_table.shape[1]
-    t = int(start) + torch.arange(c, device=dev)
-    pg = torch.clamp(t // page_size, 0, npg - 1)
-    phys = page_table.long()[:, pg]                            # [B, c]
-    phys = torch.where(alive.bool()[:, None], phys, 0)
+    w = writes if writes is not None else block_writes(
+        page_table, int(start), alive, c, page_size, words.shape[0])
     js = first_block_rows(int(start), c, page_size)
     n_first = len(range(c)[js])
     if n_first and fit is None:
         fit = kvquant.fit_codebooks(_quant_groups(new[:, js], cb_mode),
                                     bits).to(cbs.dtype)
     live = alive.bool()[:, None].expand(b, c)
-    return _write_rows_quant(words, cbs, phys, (t % page_size).expand(b, c),
-                             live, new, bits, cb_mode, (slice(None), js),
-                             fit if n_first else None)
+    return _write_rows_quant(words, cbs, w.phys, w.off, live, new, bits,
+                             cb_mode, (slice(None), js),
+                             fit if n_first else None, w.src)
 
 
 def gqa_decode_paged_quant(p, x_t: torch.Tensor, cache: QuantPagedKVCache,
@@ -409,13 +474,15 @@ def gqa_decode_paged_quant(p, x_t: torch.Tensor, cache: QuantPagedKVCache,
                            head_dim: int, page_size: int, kv_bits: int,
                            kv_cb_mode: str = "page", attn_softcap=None,
                            rope_theta: float = 10000.0, query_scale=None,
-                           fit_slots: Optional[torch.Tensor] = None):
+                           fit_slots: Optional[torch.Tensor] = None,
+                           writes: Optional[PageWrites] = None):
     """``gqa_decode_paged`` over codebook-quantized KV pages.  The written
     token is quantized before it is attended, so the kernel reads exactly
     what the cache stores.  ``fit_slots`` ([F] long, on the device) lists
     the slots whose write starts a page (the engine knows them); without
-    it they are read from ``pos`` on the host.  Returns (out [B,1,D],
-    cache), written in place."""
+    it they are read from ``pos`` on the host.  ``writes`` as in
+    :func:`gqa_decode_paged`.  Returns (out [B,1,D], cache), written in
+    place."""
     q, k, v = _qkv(p, x_t, n_heads, n_kv, head_dim)
     posb = pos[:, None]
     q = apply_rope(q, posb, rope_theta)
@@ -427,9 +494,11 @@ def gqa_decode_paged_quant(p, x_t: torch.Tensor, cache: QuantPagedKVCache,
         fk, fv = fit_first_rows(k[rows, 0], v[rows, 0], kv_bits, kv_cb_mode,
                                 cache.k_cb.dtype)
     _write_slot_quant(cache.k_words, cache.k_cb, page_table, pos, alive,
-                      k[:, 0], page_size, kv_bits, kv_cb_mode, fit=(rows, fk))
+                      k[:, 0], page_size, kv_bits, kv_cb_mode, fit=(rows, fk),
+                      writes=writes)
     _write_slot_quant(cache.v_words, cache.v_cb, page_table, pos, alive,
-                      v[:, 0], page_size, kv_bits, kv_cb_mode, fit=(rows, fv))
+                      v[:, 0], page_size, kv_bits, kv_cb_mode, fit=(rows, fv),
+                      writes=writes)
     scale = query_scale if query_scale is not None else head_dim ** -0.5
     o = dispatch.paged_attention_quant(
         q, cache.k_words, cache.v_words, cache.k_cb, cache.v_cb, page_table,
@@ -446,12 +515,14 @@ def gqa_prefill_block_paged_quant(p, x: torch.Tensor,
                                   kv_bits: int, kv_cb_mode: str = "page",
                                   attn_softcap=None,
                                   rope_theta: float = 10000.0,
-                                  query_scale=None):
+                                  query_scale=None,
+                                  writes: Optional[PageWrites] = None):
     """``gqa_prefill_block_paged`` over codebook-quantized KV pages: the
     block's K/V rows are quantized into the slot's pages, then the block's
     queries attend over the stored words (page-gathered, with each page's
-    codebooks) through the quantized blockwise-prefill route.  Returns
-    (out [B,c,D], cache), written in place."""
+    codebooks) through the quantized blockwise-prefill route.  ``writes``
+    as in :func:`gqa_prefill_block_paged`.  Returns (out [B,c,D], cache),
+    written in place."""
     b, c, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     t = start + torch.arange(c, device=x.device)
@@ -467,9 +538,11 @@ def gqa_prefill_block_paged_quant(p, x: torch.Tensor,
         fk = fk.reshape((b, n_first) + fk.shape[1:])
         fv = fv.reshape((b, n_first) + fv.shape[1:])
     _write_block_slot_quant(cache.k_words, cache.k_cb, page_table, start,
-                            alive, k, page_size, kv_bits, kv_cb_mode, fit=fk)
+                            alive, k, page_size, kv_bits, kv_cb_mode, fit=fk,
+                            writes=writes)
     _write_block_slot_quant(cache.v_words, cache.v_cb, page_table, start,
-                            alive, v, page_size, kv_bits, kv_cb_mode, fit=fv)
+                            alive, v, page_size, kv_bits, kv_cb_mode, fit=fv,
+                            writes=writes)
     kw_view = _gather_slots(cache.k_words, page_table, alive)  # [B,cap,KV,Wd]
     vw_view = _gather_slots(cache.v_words, page_table, alive)
     masked = torch.where(alive.bool()[:, None], page_table.long(), 0)
@@ -643,18 +716,21 @@ def mla_decode_paged(p, x_t: torch.Tensor, cache: PagedMLACache,
                      page_table: torch.Tensor, pos: torch.Tensor,
                      alive: torch.Tensor, *, n_heads: int, kv_lora: int,
                      rope_dim: int, nope_dim: int, v_dim: int,
-                     page_size: int, rope_theta: float = 10000.0):
+                     page_size: int, rope_theta: float = 10000.0,
+                     writes: Optional[PageWrites] = None):
     """Absorbed MLA decode for a batch of engine slots over the paged
-    latent cache (per-slot ``pos``; dead slots write the trash page).
-    Attention runs through the MLA paged-decode route.  Returns (out
-    [B,1,D], cache) — the pools are written in place."""
+    latent cache (per-slot ``pos``; dead slots write the trash page;
+    ``writes`` as in :func:`gqa_decode_paged`).  Attention runs through
+    the MLA paged-decode route.  Returns (out [B,1,D], cache) — the pools
+    are written in place."""
     posb = pos[:, None]
     q_nope, q_rope = _mla_q(p, x_t, n_heads, nope_dim, rope_dim, posb,
                             rope_theta)
     c_kv, k_rope = _mla_latent(p, x_t, kv_lora, posb, rope_theta)
-    _write_slot(cache.c_kv, page_table, pos, alive, c_kv[:, 0], page_size)
+    _write_slot(cache.c_kv, page_table, pos, alive, c_kv[:, 0], page_size,
+                writes)
     _write_slot(cache.k_rope, page_table, pos, alive, k_rope[:, 0],
-                page_size)
+                page_size, writes)
     q_eff = _mla_absorb_q(p, q_nope, kv_lora, n_heads, nope_dim)
     ctx = dispatch.mla_paged_attention(
         q_eff, q_rope, cache.c_kv, cache.k_rope, page_table, pos, alive,
@@ -667,19 +743,22 @@ def mla_prefill_block_paged(p, x: torch.Tensor, cache: PagedMLACache,
                             alive: torch.Tensor, *, n_heads: int,
                             kv_lora: int, rope_dim: int, nope_dim: int,
                             v_dim: int, page_size: int,
-                            rope_theta: float = 10000.0):
+                            rope_theta: float = 10000.0,
+                            writes: Optional[PageWrites] = None):
     """One prompt block of an MLA layer over the paged latent cache: the
-    block's latent rows land in the slot's pages, the slot's page view is
-    gathered and re-expanded, and the block attends over it (rows past the
-    block mask out causally).  Returns (out [B,c,D], cache)."""
+    block's latent rows land in the slot's pages (``writes`` as in
+    :func:`gqa_prefill_block_paged`), the slot's page view is gathered and
+    re-expanded, and the block attends over it (rows past the block mask
+    out causally).  Returns (out [B,c,D], cache)."""
     b, c, _ = x.shape
     t = start + torch.arange(c, device=x.device)
     q_nope, q_rope = _mla_q(p, x, n_heads, nope_dim, rope_dim, t[None, :],
                             rope_theta)
     c_kv, k_rope = _mla_latent(p, x, kv_lora, t[None, :], rope_theta)
-    _write_block_slot(cache.c_kv, page_table, start, alive, c_kv, page_size)
+    _write_block_slot(cache.c_kv, page_table, start, alive, c_kv, page_size,
+                      writes)
     _write_block_slot(cache.k_rope, page_table, start, alive, k_rope,
-                      page_size)
+                      page_size, writes)
     c_view = _gather_slots(cache.c_kv, page_table, alive)  # [B,cap,lora]
     r_view = _gather_slots(cache.k_rope, page_table, alive)
     o = _mla_block_attend(p, q_nope, q_rope, c_view, r_view, t,
@@ -731,11 +810,12 @@ def mla_decode_paged_quant(p, x_t: torch.Tensor, cache: QuantPagedMLACache,
                            kv_lora: int, rope_dim: int, nope_dim: int,
                            v_dim: int, page_size: int, kv_bits: int,
                            rope_theta: float = 10000.0,
-                           fit_slots: Optional[torch.Tensor] = None):
+                           fit_slots: Optional[torch.Tensor] = None,
+                           writes: Optional[PageWrites] = None):
     """``mla_decode_paged`` over codebook-quantized latent pages: the
     token's latent rows are quantized into the slots' pages (a slot that
     starts a page fits its codebooks), then attended through the quantized
-    MLA paged-decode route.  ``fit_slots`` as in
+    MLA paged-decode route.  ``fit_slots`` and ``writes`` as in
     :func:`gqa_decode_paged_quant`.  Returns (out [B,1,D], cache), written
     in place."""
     posb = pos[:, None]
@@ -751,7 +831,7 @@ def mla_decode_paged_quant(p, x_t: torch.Tensor, cache: QuantPagedMLACache,
                   if rows.numel() else None)
         _write_slot_quant(_one_group(words), cbs, page_table, pos, alive,
                           new, page_size, kv_bits, "page",
-                          fit=(rows, cb_fit))
+                          fit=(rows, cb_fit), writes=writes)
     q_eff = _mla_absorb_q(p, q_nope, kv_lora, n_heads, nope_dim)
     ctx = dispatch.mla_paged_attention_quant(
         q_eff, q_rope, cache.c_words, cache.r_words, cache.c_cb, cache.r_cb,
@@ -766,10 +846,12 @@ def mla_prefill_block_paged_quant(p, x: torch.Tensor,
                                   alive: torch.Tensor, *, n_heads: int,
                                   kv_lora: int, rope_dim: int, nope_dim: int,
                                   v_dim: int, page_size: int, kv_bits: int,
-                                  rope_theta: float = 10000.0):
+                                  rope_theta: float = 10000.0,
+                                  writes: Optional[PageWrites] = None):
     """MLA block prefill over codebook-quantized latent pages: the block's
-    latent rows are quantized into the slot's pages, then the slot's word
-    view is gathered, dequantized in plain torch (the expansion needs dense
+    latent rows are quantized into the slot's pages (``writes`` as in
+    :func:`gqa_prefill_block_paged`), then the slot's word view is
+    gathered, dequantized in plain torch (the expansion needs dense
     latents, so the reference has no fused quantized MLA prefill kernel)
     and re-expanded as on dense pages.  Returns (out [B,c,D], cache)."""
     b, c, _ = x.shape
@@ -781,7 +863,7 @@ def mla_prefill_block_paged_quant(p, x: torch.Tensor,
                             (cache.r_words, cache.r_cb, k_rope)):
         _write_block_slot_quant(_one_group(words), cbs, page_table, start,
                                 alive, _one_group(new), page_size, kv_bits,
-                                "page")
+                                "page", writes=writes)
     masked = torch.where(alive.bool()[:, None], page_table.long(), 0)
     c_view, r_view = (
         dequant_view_ref(_gather_slots(words, page_table, alive),

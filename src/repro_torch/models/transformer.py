@@ -467,17 +467,22 @@ def cache_page_size(stack_caches) -> int:
     return stack_caches["pos0"][0].shape[2]
 
 
+def cache_pages(stack_caches) -> int:
+    """Pages of one stack's engine pools, the trash page included."""
+    return stack_caches["pos0"][0].shape[1]
+
+
 def _apply_mixer_decode_slots(kind: LayerKind, p, h: torch.Tensor, c,
                               page_table, pos, alive, cfg: ModelConfig,
-                              page_size: int, rows):
+                              page_size: int, rows, writes):
     if kind.mixer == "mla":
-        kw = dict(_mla_kw(cfg), page_size=page_size)
+        kw = dict(_mla_kw(cfg), page_size=page_size, writes=writes)
         if cfg.kv_bits:
             return attn.mla_decode_paged_quant(
                 p, h, c, page_table, pos, alive, kv_bits=cfg.kv_bits,
                 fit_slots=rows, **kw)
         return attn.mla_decode_paged(p, h, c, page_table, pos, alive, **kw)
-    kw = dict(_gqa_kw(cfg), page_size=page_size)
+    kw = dict(_gqa_kw(cfg), page_size=page_size, writes=writes)
     if cfg.kv_bits:
         return attn.gqa_decode_paged_quant(
             p, h, c, page_table, pos, alive, kv_bits=cfg.kv_bits,
@@ -496,13 +501,16 @@ def decode_step_slots(params, cfg: ModelConfig, caches,
     are masked: their attention reads are invalid and their pool writes
     land on the trash page.  With quantized pages, ``fit_slots`` lists the
     slots whose write starts a page (their codebooks are fit this step);
-    without it they are read from ``pos`` on the host.  Returns (logits
-    [B, 1, V] f32, caches) — the pools are written in place."""
+    without it they are read from ``pos`` on the host.  The cells the
+    step writes are found once per stack, for every layer.  Returns
+    (logits [B, 1, V] f32, caches) — the pools are written in place."""
     full_f32()
     x = _embed(params, cfg, tokens_t)
     rows = None
     for spec, sp, sc in zip(cfg.stacks, params["stacks"], caches):
         page_size = cache_page_size(sc)
+        writes = attn.slot_writes(page_table, pos, alive, page_size,
+                                  cache_pages(sc))
         if cfg.kv_bits and rows is None:
             rows = (attn.first_write_slots(pos, page_size)
                     if fit_slots is None
@@ -514,7 +522,7 @@ def decode_step_slots(params, cfg: ModelConfig, caches,
                 out, _ = _apply_mixer_decode_slots(
                     kind, p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]),
                     _group(sc[f"pos{pi}"], g), page_table, pos, alive, cfg,
-                    page_size, rows)
+                    page_size, rows, writes)
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x), caches
@@ -522,15 +530,15 @@ def decode_step_slots(params, cfg: ModelConfig, caches,
 
 def _apply_mixer_prefill_slot(kind: LayerKind, p, h: torch.Tensor, c,
                               table_row, start: int, alive,
-                              cfg: ModelConfig, page_size: int):
+                              cfg: ModelConfig, page_size: int, writes):
     if kind.mixer == "mla":
-        kw = dict(_mla_kw(cfg), page_size=page_size)
+        kw = dict(_mla_kw(cfg), page_size=page_size, writes=writes)
         if cfg.kv_bits:
             return attn.mla_prefill_block_paged_quant(
                 p, h, c, table_row, start, alive, kv_bits=cfg.kv_bits, **kw)
         return attn.mla_prefill_block_paged(p, h, c, table_row, start, alive,
                                             **kw)
-    kw = dict(_gqa_kw(cfg), page_size=page_size)
+    kw = dict(_gqa_kw(cfg), page_size=page_size, writes=writes)
     if cfg.kv_bits:
         return attn.gqa_prefill_block_paged_quant(
             p, h, c, table_row, start, alive, kv_bits=cfg.kv_bits,
@@ -556,13 +564,16 @@ def prefill_chunk_slots(params, cfg: ModelConfig, caches,
     x = _embed(params, cfg, tokens_c)
     for spec, sp, sc in zip(cfg.stacks, params["stacks"], caches):
         page_size = cache_page_size(sc)
+        writes = attn.block_writes(table_row, start, alive,
+                                   tokens_c.shape[1], page_size,
+                                   cache_pages(sc))
         for g in range(spec.groups):
             for pi, kind in enumerate(spec.pattern):
                 p = _group(sp[f"pos{pi}"], g)
                 out, _ = _apply_mixer_prefill_slot(
                     kind, p["mixer"], L.rms_norm(x, p["ln1_norm_scale"]),
                     _group(sc[f"pos{pi}"], g), table_row, start, alive, cfg,
-                    page_size)
+                    page_size, writes)
                 x = _mlp_residual(kind, p, _mixer_residual(p, x, out, cfg),
                                   cfg)
     return _head(params, cfg, x[:, -1:, :]), caches

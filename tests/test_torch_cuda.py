@@ -661,3 +661,119 @@ def test_cuda_page_gather_alive_dtypes(cuda, case, alive_dtype):
     assert torch.equal(got, ref.gather_pages_ref(pool, table, alive))
     for s in torch.nonzero(~alive).flatten().tolist():
         assert torch.equal(got[s], pool[0].repeat((npg,) + (1,) * len(feat)))
+
+
+# ---------------------------------------------------------------------------
+# Kernel rows 1 and 11 redesigned: both launch plans (decode at M <= 16,
+# 3xTF32 tensor cores above) at every index width, ragged shapes included
+# ---------------------------------------------------------------------------
+
+MATMUL_MS = (1, 4, 16, 17, 64, 256)
+MATMUL_KS = (2, 4, 8, 16, 32, 256)        # 1..8 bits: 3 and 5 bits pad words
+MATMUL_SHAPES = ((37, 70), (1000, 130), (2816, 1024), (1024, 2816))
+_MATMUL_OPERANDS = {}
+
+
+def _matmul_operands(cuda, k, kd, n):
+    """(codebook, uint8 indices, pack_indices_2d words) on the card, made
+    once per (k, kd, n)."""
+    key = (k, kd, n)
+    if key not in _MATMUL_OPERANDS:
+        g, cb, idx = _card_operands(k, kd, n, cuda, k + kd + n)
+        words = tc.as_words(tc.pack_indices_2d(idx.cpu().numpy(), k), cuda)
+        _MATMUL_OPERANDS[key] = (cb, idx.to(torch.uint8), words)
+    return _MATMUL_OPERANDS[key]
+
+
+def _hold_matmul(fn, x, operand, cb, want):
+    """Two calls: equal bits, one launch each, within 1e-4 x max |y|."""
+    before = fn.launches
+    got = fn(x, operand, cb)
+    again = fn(x, operand, cb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kd,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("k", MATMUL_KS)
+@pytest.mark.parametrize("m", MATMUL_MS)
+def test_cuda_codebook_matmul_packed_plans(cuda, m, k, kd, n):
+    cb, _, words = _matmul_operands(cuda, k, kd, n)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, kd, generator=g, device=cuda)
+    _hold_matmul(codebook_matmul_packed, x, words, cb,
+                 ref.packed_codebook_matmul_ref(x, words, cb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kd,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("k", MATMUL_KS)
+@pytest.mark.parametrize("m", MATMUL_MS)
+def test_cuda_codebook_matmul_plans(cuda, m, k, kd, n):
+    cb, idx, _ = _matmul_operands(cuda, k, kd, n)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, kd, generator=g, device=cuda)
+    _hold_matmul(codebook_matmul, x, idx, cb,
+                 ref.codebook_matmul_ref(x, idx, cb))
+
+
+@pytest.mark.cuda
+def test_cuda_codebook_matmul_step_rows_match_the_plans(cuda):
+    """The host's launch plans count K steps as the kernels stage them."""
+    from repro_torch.kernels.codebook_matmul import STAGES, STEP_ROWS
+    from repro_torch.kernels.codebook_matmul_packed import (TC_COLS, step_rows,
+                                                            tc_smem_bytes)
+    packed = build.function("codebook_matmul_packed",
+                            "repro_codebook_matmul_packed_step_rows",
+                            [ctypes.c_int])
+    assert [packed(bits) for bits in range(1, 9)] == [
+        step_rows(bits) for bits in range(1, 9)]
+    assert build.function("codebook_matmul",
+                          "repro_codebook_matmul_step_rows", [])() == STEP_ROWS
+    # and their shared memory (the plans' residency) as the kernels lay it out
+    packed_smem = build.function("codebook_matmul_packed",
+                                 "repro_codebook_matmul_packed_tc_smem",
+                                 [ctypes.c_int, ctypes.c_int])
+    uint8_smem = build.function("codebook_matmul",
+                                "repro_codebook_matmul_tc_smem",
+                                [ctypes.c_int])
+    for cols in TC_COLS:
+        for bits in range(1, 9):
+            rows, lanes = step_rows(bits), 32 // bits
+            assert packed_smem(bits, cols) == tc_smem_bytes(
+                rows, cols, rows // lanes * (cols + 8) * 4, 1 << bits)
+        assert uint8_smem(cols) == tc_smem_bytes(
+            STEP_ROWS, cols, STEP_ROWS * (cols + 4), 256, STAGES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", ["slot", "block"])
+def test_cuda_dense_trash_page_writes_are_deterministic(cuda, write):
+    """Dead slots colliding on the trash page: two dense writes on the card
+    leave equal pools, page 0 included, equal to the CPU route's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    b, page, npg, kv, hd = 8, 8, 9, 4, 64
+    table = (torch.randperm(b * npg, generator=g, device=cuda) + 1).reshape(
+        b, npg).to(torch.int32)
+    alive = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                         device=cuda)
+    if write == "block":
+        # five dead slots write 64 rows each into page 0's 8 cells
+        new = torch.randn(b, 64, kv, hd, generator=g, device=cuda)
+        fn, args = attn._write_block_slot, (table, 3, alive, new, page)
+    else:
+        # every dead slot writes offset 5 of page 0
+        new = torch.randn(b, kv, hd, generator=g, device=cuda)
+        pos = torch.tensor([5, 13, 21, 29, 5, 13, 45, 60], dtype=torch.int32,
+                           device=cuda)
+        fn, args = attn._write_slot, (table, pos, alive, new, page)
+    shape = (b * npg + 1, page, kv, hd)
+    pools = [fn(torch.zeros(shape, device=cuda), *args) for _ in range(2)]
+    cpu = fn(torch.zeros(shape),
+             *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(pools[0], pools[1])
+    assert torch.equal(pools[0].cpu(), cpu)
