@@ -578,13 +578,31 @@ def check_page_gather(gen, dev, sh: Shapes) -> dict:
                 max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
 
+# Logical pages a slot of the split checks and of the long-context timing of
+# rows 6 and 8 (``kernels/paged_attention.py``: plan): one page, the serving
+# shape's 9, a count no plan divides, and 4096 rows of pages of 16.
+SPLIT_NPG = (1, 9, 17, 256)
+LONG_POS = 4095
+
+
+def split_positions(pages: int, page: int, npg: int):
+    """pos and alive of 5 slots against a plan of ``pages`` pages a split:
+    the last row of split 0, the first of split 1, the last row of the
+    slot, a slot whose rows all lie in split 0, and a dead slot."""
+    cap, edge = npg * page, pages * page
+    return ([min(edge - 1, cap - 1), min(edge, cap - 1), cap - 1,
+             min(3, cap - 1), 5], [True, True, True, True, False])
+
+
 def check_paged_attention(gen, dev, sh: Shapes) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
+    from repro_torch.kernels.paged_attention import paged_attention, plan
     print(f"paged_attention (alive slots within rel {REL_TOL:g}, dead slots "
           f"exactly 0):")
 
-    def case(label, q, kp, vp, table, pos, alive, softcap=None):
+    def case(label, q, kp, vp, table, pos, alive, softcap=None,
+             twice=False):
         hd = q.shape[-1]
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
         alive = torch.tensor(alive, device=dev)
@@ -595,6 +613,9 @@ def check_paged_attention(gen, dev, sh: Shapes) -> dict:
         dead = got[~alive]
         if not torch.equal(dead, torch.zeros_like(dead)):
             raise SmokeFailure(f"paged_attention {label}: dead slots not 0")
+        if twice and not torch.equal(
+                paged_attention(q, kp, vp, table, pos, alive, **kw), got):
+            raise SmokeFailure(f"paged_attention {label}: two calls differ")
         if not alive.any():
             print(f"  {label}: every slot dead, output exactly 0 ok")
             return 0.0
@@ -616,12 +637,38 @@ def check_paged_attention(gen, dev, sh: Shapes) -> dict:
     case("serving shape, one dead slot", *ops,
          [sh.prompt_len, sh.prompt_len + 7, sh.npg * sh.page - 1, 0],
          [True, True, True, False])
+    rep = sh.h // sh.kv
+    for npg in SPLIT_NPG:
+        pl = plan(5, sh.kv, rep, npg, sm_count(dev.index))
+        pos_s, alive_s = split_positions(pl.pages, sh.page, npg)
+        case(f"npg {npg}, plan {tuple(pl)}: pos {pos_s} (split 0's last "
+             f"row / split 1's first / the last / inside split 0), one dead "
+             f"slot, two calls bit-equal",
+             *paged_operands(gen, dev, 5, rep, sh.kv, sh.hd, sh.page, npg),
+             pos_s, alive_s, twice=True)
     pos_l = [sh.prompt_len + i * (sh.gen_len - 1) // 3
              for i in range(sh.batch)]
     err = case(f"serving shape, pos {pos_l}", *ops, pos_l,
                [True] * sh.batch)
-    # timing at the serving decode shape, pools cycled past L2
+    timing = paged_attention_timing(gen, dev, sh, ops, pos_l, err)
+    npg = -(-(LONG_POS + 1) // sh.page)
+    long_ops = paged_operands(gen, dev, sh.batch, rep, sh.kv, sh.hd, sh.page,
+                              npg)
+    pos_long = [LONG_POS] * sh.batch
+    long_err = case(f"long context, npg {npg}, pos {pos_long}", *long_ops,
+                    pos_long, [True] * sh.batch)
+    return dict(timing, long=paged_attention_timing(gen, dev, sh, long_ops,
+                                                    pos_long, long_err))
+
+
+def paged_attention_timing(gen, dev, sh: Shapes, ops, pos_l, err) -> dict:
+    """Row 6, its plain version and SDPA on the gathered view, timed at 4
+    slots at ``pos_l``, pools cycled past L2; the plan beside the shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
+    from repro_torch.kernels.paged_attention import paged_attention, plan
     q, kp, vp, table = ops
+    npg = table.shape[1]
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
     alive = torch.ones(sh.batch, dtype=torch.bool, device=dev)
     nc = copies_for(2 * kp.numel() * 4)
@@ -632,7 +679,7 @@ def check_paged_attention(gen, dev, sh: Shapes) -> dict:
         gk = ref.gather_pages_ref(k_c, table, alive).transpose(1, 2)
         gv = ref.gather_pages_ref(v_c, table, alive).transpose(1, 2)
         views.append((gk.contiguous(), gv.contiguous()))
-    cap = sh.npg * sh.page
+    cap = npg * sh.page
     mask = (torch.arange(cap, device=dev)[None, :] <= pos[:, None])
     mask = mask[:, None, None, :]
     qt = q.transpose(1, 2).contiguous()
@@ -657,11 +704,13 @@ def check_paged_attention(gen, dev, sh: Shapes) -> dict:
     nbytes = (rows * sh.kv * sh.hd * 4 * 2 + 2 * q.numel() * 4
               + table.numel() * 4 + 2 * sh.batch * 4)
     b_ms, b_by = bound(nbytes, rows * sh.h * sh.hd * 2 * 2)
+    pl = plan(sh.batch, sh.kv, sh.h // sh.kv, npg, sm_count(dev.index))
     return dict(name="paged_attention",
                 shape=f"q [{sh.batch},1,{sh.h},{sh.hd}] pools "
-                      f"[{sh.n_phys},{sh.page},{sh.kv},{sh.hd}] npg={sh.npg} "
-                      f"pos {pos_l}",
-                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+                      f"[{kp.shape[0]},{sh.page},{sh.kv},{sh.hd}] "
+                      f"npg={npg} pos {pos_l} plan {tuple(pl)}",
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                **times)
 
 
 # ---------------------------------------------------------------------------
@@ -1028,24 +1077,61 @@ def _mla_cases(sh: Shapes):
 
 def check_mla_paged_attention(gen, dev, sh: Shapes) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.mla_paged_attention import mla_paged_attention
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
+    from repro_torch.kernels.mla_paged_attention import (mla_paged_attention,
+                                                         plan)
     print(f"mla_paged_attention (alive slots within rel {REL_TOL:g}, dead "
           f"slots exactly 0):")
     scale = _mla_scale(sh)
-    cases, pos_l = _mla_cases(sh)
-    err = None
-    for label, g, pos, alive in cases:
-        ops = mla_operands(gen, dev, len(pos), **g)
+
+    def case(label, ops, pos, alive, twice=False):
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
         alive = torch.tensor(alive, device=dev)
         got = mla_paged_attention(*ops, pos, alive, scale=scale)
         torch.cuda.synchronize()
-        e = _check_alive(label, got, ref.mla_paged_attention_ref(
-            *ops, pos, alive, scale=scale), alive)
+        if twice and not torch.equal(
+                mla_paged_attention(*ops, pos, alive, scale=scale), got):
+            raise SmokeFailure(f"mla_paged_attention {label}: two calls "
+                               f"differ")
+        return _check_alive(label, got, ref.mla_paged_attention_ref(
+            *ops, pos, alive, scale=scale), alive), pos, alive
+
+    cases, pos_l = _mla_cases(sh)
+    err = None
+    for label, g, pos, alive in cases:
+        ops = mla_operands(gen, dev, len(pos), **g)
+        e, pos, alive = case(label, ops, pos, alive)
         if label.startswith("serving shape, pos"):
             err, keep = e, (ops, pos, alive)
-    # timing at the serving decode shape, pools cycled past L2
-    (q_eff, q_rope, c_pool, r_pool, table), pos, alive = keep
+    g = mla_shape(sh)
+    for npg in SPLIT_NPG:
+        pl = plan(5, g["h"], npg, sm_count(dev.index))
+        pos_s, alive_s = split_positions(pl.pages, g["page"], npg)
+        case(f"npg {npg}, plan {tuple(pl)}: pos {pos_s} (split 0's last "
+             f"row / split 1's first / the last / inside split 0), one dead "
+             f"slot, two calls bit-equal",
+             mla_operands(gen, dev, 5, **dict(g, npg=npg)), pos_s, alive_s,
+             twice=True)
+    timing = mla_timing(sh, *keep, pos_l, err)
+    npg = -(-(LONG_POS + 1) // g["page"])
+    long_ops = mla_operands(gen, dev, sh.batch, **dict(g, npg=npg))
+    pos_long = [LONG_POS] * sh.batch
+    long_err, pos, alive = case(f"long context, npg {npg}, pos {pos_long}",
+                                long_ops, pos_long, [True] * sh.batch)
+    return dict(timing, long=mla_timing(sh, long_ops, pos, alive, pos_long,
+                                        long_err))
+
+
+def mla_timing(sh: Shapes, ops, pos, alive, pos_l, err) -> dict:
+    """Row 8, its plain version and SDPA on the gathered view, timed at
+    ``pos_l``, pools cycled past L2; the plan beside the shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
+    from repro_torch.kernels.mla_paged_attention import (mla_paged_attention,
+                                                         plan)
+    scale = _mla_scale(sh)
+    q_eff, q_rope, c_pool, r_pool, table = ops
+    dev = q_eff.device
     nc = copies_for((c_pool.numel() + r_pool.numel()) * 4)
     pools = [(c_pool.clone(), r_pool.clone()) for _ in range(nc)]
     b, _, h, lat = q_eff.shape
@@ -1076,10 +1162,12 @@ def check_mla_paged_attention(gen, dev, sh: Shapes) -> dict:
     nbytes = (rows * (lat + rd) * 4 + (q_eff.numel() + q_rope.numel()) * 4
               + b * h * lat * 4 + table.numel() * 4 + 2 * b * 4)
     b_ms, b_by = bound(nbytes, 2 * h * rows * (2 * lat + rd))
+    pl = plan(b, h, table.shape[1], sm_count(dev.index))
     return dict(name="mla_paged_attention",
                 shape=f"q_eff [{b},1,{h},{lat}] q_rope [{b},1,{h},{rd}] "
                       f"pools [{c_pool.shape[0]},{c_pool.shape[1]},{lat}/"
-                      f"{rd}] npg={table.shape[1]} pos {pos_l}",
+                      f"{rd}] npg={table.shape[1]} pos {pos_l} plan "
+                      f"{tuple(pl)}",
                 max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                 bytes=nbytes, **times)
 
@@ -2524,7 +2612,7 @@ def run() -> int:
 
     for r in results:
         also = r.get("prefill")
-        also = also if isinstance(also, list) else [also]
+        also = (also if isinstance(also, list) else [also]) + [r.get("long")]
         for label, t in [(r["name"], r)] + [("  same kernel", a)
                                             for a in also]:
             if t is None:
@@ -2568,6 +2656,10 @@ def run() -> int:
             **{"mirrored_device_" + key: r.get("mirrored_device_" + key)
                for key in ("ms", "plain_ms", "library_ms")},
             "dense_ms": r.get("dense_ms"),
+            **({f"long_{key}": r["long"][key]
+                for key in ("shape", "ms", "device_ms", "plain_ms",
+                            "library_ms", "device_library_ms", "bound_ms")}
+               if "long" in r else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,7 +34,7 @@ SOURCES = ("quantized_gather", "codebook_matmul_packed",
            "paged_attention_quant", "codebook_matmul", "mla_paged_attention",
            "mla_paged_attention_quant", "kmeans_assign", "fixed_quant")
 HEADERS = ("unpack.cuh", "online_softmax.cuh", "mla_attention.cuh",
-           "codebook_mma.cuh")
+           "codebook_mma.cuh", "split_decode.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

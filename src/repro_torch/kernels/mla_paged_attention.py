@@ -5,9 +5,11 @@ Replaces ``repro/kernels/paged_attention.py:mla_paged_attention_pallas``:
 one query token per engine slot and head attends over the slot's latent
 rows (c [L] as key and value, its rotary key r [R]) through the page
 table: softmax((q_eff·c + q_rope·r)·scale) · c, rows past ``pos`` and dead
-slots masked.  Bound on the H100: bytes (the visible latent rows).  Every
-head shares the latent rows, so one block per slot loops over the slot's
-pages and stages each tile once for all heads.
+slots masked.  Bound on the H100: bytes (the visible latent rows).
+:func:`plan` splits each slot's pages over the blocks of one thread-block
+cluster and its heads over groups (a block per split, head group and
+slot); the splits' partial softmax states merge in rank order on the card:
+one launch, no workspace, the same bits on every call.
 
 Dead slots: the kernel writes 0 there (the Pallas kernel's rule), while
 the plain version :func:`ref.mla_paged_attention_ref` follows the
@@ -17,16 +19,46 @@ discards dead rows, so the two are held together on alive slots only.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.codebook_matmul_packed import sm_count
+from repro_torch.kernels.paged_attention import split_pages
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 # The kernels' block holds every head's query row and context registers
 # (``csrc/mla_attention.cuh``): at most 16 heads and a latent width of 512.
 MAX_HEADS, MAX_LATENT = 16, 512
+
+
+class Plan(NamedTuple):
+    splits: int        # blocks of one cluster, one per range of pages
+    pages: int         # logical pages of a split (splits · pages ≥ npg)
+    heads: int         # heads of a block
+    groups: int        # head groups (blocks per split and slot)
+    blocks: int        # blocks launched
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, h: int, npg: int, sms: int) -> Plan:
+    """The launch of a decode call over ``b`` slots, ``h`` heads and
+    ``npg`` logical pages a slot, on ``sms`` SMs: split the pages until the
+    slots' splits fill the SMs (at most ``paged_attention.MAX_SPLITS``),
+    then halve the head groups until the blocks fill half of them: every
+    group reads the split's rows again (from L2 after the first), so past
+    that point fewer, wider groups read less and lose little parallelism.
+    From the shapes alone, never from ``pos``.  Cached."""
+    splits, pages = split_pages(npg, -(-sms // b))
+    groups = 1
+    while groups < h and 2 * splits * groups * b < sms:
+        groups *= 2
+    heads = -(-h // groups)
+    groups = -(-h // heads)
+    return Plan(splits, pages, heads, groups, splits * groups * b)
 
 
 def check_mla_operands(q_eff: torch.Tensor, q_rope: torch.Tensor,
@@ -92,13 +124,15 @@ def mla_paged_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
     b, _, h, lat = q_eff.shape
     n_phys, page, rd = r_pool.shape
     tbl, p, alv = slot_operands(page_table, pos, alive, dev)
+    npg = page_table.shape[1]
+    pl = plan(b, h, npg, sm_count(dev.index))
     out = torch.empty((b, 1, h, lat), dtype=torch.float32, device=dev)
     fn = build.function("mla_paged_attention", "repro_mla_paged_attention",
                         _ARGTYPES)
     err = fn(q_eff.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
              r_pool.data_ptr(), tbl.data_ptr(), p.data_ptr(), alv.data_ptr(),
-             out.data_ptr(), b, h, lat, rd, page, page_table.shape[1],
-             n_phys, float(scale), build.stream_handle(dev))
+             out.data_ptr(), b, h, lat, rd, page, npg, n_phys, pl.splits,
+             pl.pages, pl.heads, float(scale), build.stream_handle(dev))
     build.check(err, "mla_paged_attention")
     mla_paged_attention.launches += 1
     return out

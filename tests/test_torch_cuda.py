@@ -777,3 +777,131 @@ def test_cuda_dense_trash_page_writes_are_deterministic(cuda, write):
     torch.cuda.synchronize()
     assert torch.equal(pools[0], pools[1])
     assert torch.equal(pools[0].cpu(), cpu)
+
+
+# --- rows 6 and 8 split over pages: the plans' boundaries ------------------
+
+SPLIT_NPG = (1, 9, 17, 256)
+
+
+def _split_pos(pages, page, npg):
+    """pos at the last row of split 0, the first row of split 1, the last
+    row, a slot whose rows all lie in split 0, and a dead slot's."""
+    cap, edge = npg * page, pages * page
+    pos = [min(edge - 1, cap - 1), min(edge, cap - 1), cap - 1,
+           min(3, cap - 1), 5]
+    return pos, [True, True, True, True, False]
+
+
+def _poison_past_pos(pool, table, pos, alive):
+    """A copy of the pool with NaN in every row that no slot sees."""
+    keep = torch.zeros(pool.shape[:2], dtype=torch.bool, device=pool.device)
+    page = pool.shape[1]
+    for b in range(table.shape[0]):
+        if alive[b]:
+            s = torch.arange(int(pos[b]) + 1, device=pool.device)
+            keep[table[b].long()[s // page], s % page] = True
+    out = torch.full_like(pool, float("nan"))
+    out[keep] = pool[keep]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npg", SPLIT_NPG)
+@pytest.mark.parametrize("kv,rep,hd,page,softcap", [
+    (16, 1, 64, 16, None), (2, 2, 12, 8, 30.0), (2, 5, 128, 16, None)])
+def test_cuda_paged_attention_split_boundaries(cuda, npg, kv, rep, hd, page,
+                                               softcap):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
+    b = 5
+    q, kp, vp, table = _paged_operands(cuda, b, kv * rep, kv, hd, page, npg,
+                                       npg + hd)
+    plan = pa.plan(b, kv, rep, npg, sm_count(cuda.index))
+    pos, alive = _split_pos(plan.pages, page, npg)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    alive = torch.tensor(alive, device=cuda)
+    kw = dict(softcap=softcap, scale=hd ** -0.5)
+    before = paged_attention.launches
+    got = paged_attention(q, kp, vp, table, pos, alive, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    _check_paged(got, ref.paged_attention_ref(q, kp, vp, table, pos, alive,
+                                              **kw), alive)
+    again = paged_attention(q, kp, vp, table, pos, alive, **kw)
+    assert torch.equal(again, got)              # a fixed merge order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npg", (9, 17))
+def test_cuda_paged_attention_nan_past_pos(cuda, npg):
+    q, kp, vp, table = _paged_operands(cuda, 5, 16, 16, 64, 16, npg, npg)
+    pos, alive = _split_pos(2, 16, npg)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    alive = torch.tensor(alive, device=cuda)
+    got = paged_attention(q, _poison_past_pos(kp, table, pos, alive),
+                          _poison_past_pos(vp, table, pos, alive), table, pos,
+                          alive, scale=0.125)
+    torch.cuda.synchronize()
+    _check_paged(got, ref.paged_attention_ref(q, kp, vp, table, pos, alive,
+                                              scale=0.125), alive)
+
+
+def _mla_split_operands(cuda, sh, npg, seed, b=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_phys = b * npg + 1
+    q_eff = torch.randn(b, 1, sh["h"], sh["lat"], generator=g, device=cuda)
+    q_rope = torch.randn(b, 1, sh["h"], sh["rd"], generator=g, device=cuda)
+    c_pool = torch.randn(n_phys, sh["page"], sh["lat"], generator=g,
+                         device=cuda)
+    r_pool = torch.randn(n_phys, sh["page"], sh["rd"], generator=g,
+                         device=cuda)
+    perm = torch.randperm(n_phys - 1, generator=g, device=cuda)[:b * npg] + 1
+    return q_eff, q_rope, c_pool, r_pool, perm.reshape(b, npg).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npg", SPLIT_NPG)
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_cuda_mla_paged_attention_split_boundaries(cuda, npg, shape):
+    from repro_torch.kernels import mla_paged_attention as mpa
+    from repro_torch.kernels.codebook_matmul_packed import sm_count
+    sh = MLA_SHAPES[shape]
+    q_eff, q_rope, c_pool, r_pool, table = _mla_split_operands(
+        cuda, sh, npg, npg + len(shape))
+    plan = mpa.plan(5, sh["h"], npg, sm_count(cuda.index))
+    pos, alive = _split_pos(plan.pages, sh["page"], npg)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    alive = torch.tensor(alive, device=cuda)
+    scale = (128 + 64) ** -0.5
+    before = mla_paged_attention.launches
+    got = mla_paged_attention(q_eff, q_rope, c_pool, r_pool, table, pos,
+                              alive, scale=scale)
+    torch.cuda.synchronize()
+    assert mla_paged_attention.launches == before + 1
+    _check_paged(got, ref.mla_paged_attention_ref(
+        q_eff, q_rope, c_pool, r_pool, table, pos, alive, scale=scale),
+        alive)
+    again = mla_paged_attention(q_eff, q_rope, c_pool, r_pool, table, pos,
+                                alive, scale=scale)
+    assert torch.equal(again, got)              # a fixed merge order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npg", (9, 17))
+def test_cuda_mla_paged_attention_nan_past_pos(cuda, npg):
+    sh = MLA_SHAPES["serving"]
+    q_eff, q_rope, c_pool, r_pool, table = _mla_split_operands(cuda, sh, npg,
+                                                               npg)
+    pos, alive = _split_pos(2, sh["page"], npg)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    alive = torch.tensor(alive, device=cuda)
+    scale = (128 + 64) ** -0.5
+    got = mla_paged_attention(
+        q_eff, q_rope, _poison_past_pos(c_pool, table, pos, alive),
+        _poison_past_pos(r_pool, table, pos, alive), table, pos, alive,
+        scale=scale)
+    torch.cuda.synchronize()
+    _check_paged(got, ref.mla_paged_attention_ref(
+        q_eff, q_rope, c_pool, r_pool, table, pos, alive, scale=scale),
+        alive)
